@@ -9,26 +9,37 @@ Phases, each of which raises on failure (non-zero exit):
 1. device: a CUDA device must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/;
-3. kernels: each kernel (K3 encoder attention, K4 ring decode attention,
-   K5 ring fold) against its plain PyTorch twin on the card, at the main
-   path's shapes, in float32 and bfloat16, with CUDA-event timings;
-4. end to end in float32: the serving engine on the card against the same
-   engine and weights on the CPU (greedy tokens must be equal);
-5. the slice at full width: seeded random weights at Llama-3.1-8B widths plus
+3. kernels: each kernel (K3 encoder attention and its gradient, K4 ring
+   decode attention, K5 ring fold, K1 flash forward, K2a/K2b flash backward)
+   against its plain PyTorch twin on the card, at the main paths' shapes, in
+   float32 and bfloat16, with CUDA-event timings;
+4. serving end to end in float32: the serving engine on the card against the
+   same engine and weights on the CPU (greedy tokens must be equal);
+5. serving at full width: seeded random weights at Llama-3.1-8B widths plus
    the CLIP ViT-L/14 tower in bfloat16, 8 requests of 512 prompt tokens with
    one 224x224 uint8 image each and 64 new tokens, through submit() and
-   run(); counts each kernel's launches in that run.
+   run(); counts each kernel's launches in that run;
+6. training end to end in float32: 3 optimizer steps of MultimodalTrainer in
+   ALIGNMENT and in FULL (remat, grad_accum=2) on the card against the CPU
+   (losses and updated parameters must agree);
+7. training at full width: the phase-5 model, ALIGNMENT (projector only,
+   remat), one collated batch of 4 x 4096 tokens with 16 uint8 images,
+   through MultimodalTrainer.train(): one warm-up step, then 3 timed steps;
+   counts each kernel's launches in that run.
 
-The last two lines of standard output are a JSON object describing each
+The last lines of standard output are JSON objects for the two full-width
+runs, nvidia-smi's name and power limit, a JSON object describing each
 kernel, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,12 +48,19 @@ import torch
 from multimeditron_torch import _build
 from multimeditron_torch.modalities.image_clip import ImageConfig
 from multimeditron_torch.models.llama import LlamaConfig
-from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
+from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel, TrainingMode
 from multimeditron_torch.ops import encoder_attention as enc
+from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
 from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
+from multimeditron_torch.train.trainer import MetricsLogger, MultimodalTrainer, TrainerConfig
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max-abs, outputs of order 1
+# Gradients are not of order 1 (they scale with the loss and the sequence),
+# so they are held relative to the largest value of the twin's gradient:
+# max|kernel - twin| / max|twin| within the same bounds.
+GRAD_TOL = TOL
+LSE_TOL = 1e-3  # max-abs on the base-2 logsumexp (values of order 10)
 KERNELS = {
     "encoder_attention": dict(
         module=enc, source="multimeditron_torch/csrc/encoder_attention.cu",
@@ -53,20 +71,31 @@ KERNELS = {
     "fold_ring_into_pages": dict(
         module=paged, source="multimeditron_torch/csrc/fold_ring.cu",
         replaces="multimeditron_tpu/ops/paged_attention.py:780"),
+    "flash_attention_fwd": dict(
+        module=fl, source="multimeditron_torch/csrc/flash_fwd.cu",
+        replaces="multimeditron_tpu/ops/flash_attention.py:90"),
+    "flash_attention_bwd_dq": dict(
+        module=fl, source="multimeditron_torch/csrc/flash_bwd.cu",
+        replaces="multimeditron_tpu/ops/flash_attention.py:287"),
+    "flash_attention_bwd_dkv": dict(
+        module=fl, source="multimeditron_torch/csrc/flash_bwd.cu",
+        replaces="multimeditron_tpu/ops/flash_attention.py:368"),
 }
+SERVING = ("encoder_attention", "ring_decode_attention", "fold_ring_into_pages")
+TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def launch_counts() -> dict:
-    return {name: k["module"].launches[name] for name, k in KERNELS.items()}
+def launch_counts(names=SERVING) -> dict:
+    return {name: KERNELS[name]["module"].launches[name] for name in names}
 
 
-def reset_launch_counts() -> None:
-    for name, k in KERNELS.items():
-        k["module"].launches[name] = 0
+def reset_launch_counts(names=SERVING) -> None:
+    for name in names:
+        KERNELS[name]["module"].launches[name] = 0
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -96,6 +125,19 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) ->
     return err
 
 
+def check_grad(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max|got - want| / max|want|; returns the max-abs error."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel gradient")
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    log(f"  {name}: max_abs_err={err:.3e}, relative to max|twin| {rel:.3e} (tol {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: relative gradient error {rel} > {tol}")
+    return err
+
+
 # ----------------------------------------------------------------------
 # Phase 3: each kernel against its plain twin
 # ----------------------------------------------------------------------
@@ -112,6 +154,17 @@ def check_encoder_attention(dtype, gen) -> dict:
                 enc.encoder_attention(q, k, v, H, kv_len=kv_len)[:, :kv_len],
                 enc.encoder_attention_plain(q, k, v, H, scale, kv_len)[:, :kv_len],
                 TOL[dtype])
+    # the gradient: the kernel's autograd Function against the twin's vjp
+    qkv = [x.requires_grad_() for x in (q, k, v)]
+    do = torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
+    out = enc.encoder_attention(*qkv, H)
+    if out.grad_fn is None:
+        raise AssertionError("K3: the kernel's output has no grad_fn")
+    got = torch.autograd.grad(out, qkv, do)
+    want = torch.autograd.grad(enc.encoder_attention_plain(*qkv, H, scale), qkv, do)
+    for name, a, b in zip("qkv", got, want):
+        check_grad(f"{tag} d{name}", a, b, GRAD_TOL[dtype])
+    q, k, v = (x.detach() for x in qkv)
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: enc.encoder_attention(q, k, v, H)),
                 plain_ms=time_ms(lambda: enc.encoder_attention_plain(q, k, v, H, scale)))
@@ -174,6 +227,78 @@ def check_fold(dtype, gen) -> dict:
                 plain_ms=time_ms(lambda: paged.fold_ring_into_pages_plain(kp, vp, *tail)))
 
 
+def flash_case(dtype, gen, B, H, Hkv, Sq, Skv, D, dead_keys=()):
+    """q, k, v and an int32 kv mask with the key ranges in ``dead_keys`` off."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    kv_mask = torch.ones(B, Skv, dtype=torch.int32, device="cuda")
+    for b, lo, hi in dead_keys:
+        kv_mask[b, lo:hi] = 0
+    return randn(B, H, Sq, D), randn(B, Hkv, Skv, D), randn(B, Hkv, Skv, D), kv_mask
+
+
+def check_flash_case(tag, dtype, gen, B, H, Hkv, Sq, Skv, D, causal, dead_keys):
+    """K1, K2a, K2b against their twins on one case; returns the errors and
+    the inputs the timings reuse."""
+    q, k, v, kv_mask = flash_case(dtype, gen, B, H, Hkv, Sq, Skv, D, dead_keys)
+    scale, offset = D ** -0.5, Skv - Sq
+    o, lse = fl._fwd_kernel(q, k, v, kv_mask, causal, scale, offset)
+    o_ref, lse_ref = fl.flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+    err_o = check_close(f"K1 {tag} o", o, o_ref, TOL[dtype])
+    check_close(f"K1 {tag} lse (base 2)", lse, lse_ref, LSE_TOL)
+    empty = lse_ref == fl.MASK_VALUE
+    if not torch.equal(lse == fl.MASK_VALUE, empty) or o[empty].any():
+        raise AssertionError(f"K1 {tag}: rows with no valid key are not exact zeros")
+    do = torch.randn(o.shape, generator=gen, device="cuda", dtype=dtype)
+    di = (o_ref.float() * do.float()).sum(dim=-1)
+    bwd = (q, k, v, kv_mask, lse_ref, di, do, causal, scale, offset)
+    dq = fl._dq_kernel(*bwd)
+    dk, dv = fl._dkv_kernel(*bwd)
+    dq_ref, dk_ref, dv_ref = fl.flash_attention_bwd_plain(q, k, v, kv_mask, o_ref, lse_ref, do,
+                                                          causal, scale)
+    err_dq = check_grad(f"K2a {tag} dq", dq, dq_ref, GRAD_TOL[dtype])
+    err_dkv = max(check_grad(f"K2b {tag} dk", dk, dk_ref, GRAD_TOL[dtype]),
+                  check_grad(f"K2b {tag} dv", dv, dv_ref, GRAD_TOL[dtype]))
+    dead = (kv_mask == 0)[:, None, :, None].expand_as(dk)
+    if dk[dead].any() or dv[dead].any():
+        raise AssertionError(f"K2b {tag}: masked keys got a nonzero gradient")
+    return dict(err_o=err_o, err_dq=err_dq, err_dkv=err_dkv, q=q, k=k, v=v, kv_mask=kv_mask,
+                o=o_ref, lse=lse_ref, do=do, bwd=bwd, causal=causal, scale=scale)
+
+
+def check_flash(dtype, gen) -> dict:
+    """K1/K2a/K2b at the full-width training shape with B=1 (the plain twin's
+    float32 scores are 2.1 GB per batch row): H=32, Hkv=8, S=4096, D=128,
+    causal, keys from 3500 on masked (right padding); then two small edge
+    cases: left padding that leaves query rows with no valid key, and a
+    non-causal, ragged, D=64 GQA case with holes in the mask."""
+    t = str(dtype)[6:]
+    c = check_flash_case(f"{t} S=4096", dtype, gen, 1, 32, 8, 4096, 4096, 128, True,
+                         [(0, 3500, 4096)])
+    check_flash_case(f"{t} empty rows", dtype, gen, 2, 4, 2, 300, 300, 128, True,
+                     [(0, 0, 100), (1, 250, 300)])
+    check_flash_case(f"{t} non-causal D=64", dtype, gen, 2, 8, 2, 333, 517, 64, False,
+                     [(0, 3, 9), (1, 400, 517)])
+    fwd = (c["q"], c["k"], c["v"], c["kv_mask"], c["causal"], c["scale"], 0)
+    twin_bwd = (c["q"], c["k"], c["v"], c["kv_mask"], c["o"], c["lse"], c["do"], c["causal"],
+                c["scale"])
+    plain_bwd = time_ms(lambda: fl.flash_attention_bwd_plain(*twin_bwd), n=10)
+    return {
+        "flash_attention_fwd": dict(
+            max_abs_err=c["err_o"], ms=time_ms(lambda: fl._fwd_kernel(*fwd), n=10),
+            plain_ms=time_ms(lambda: fl.flash_attention_fwd_plain(*fwd[:-1]), n=10)),
+        # the twin computes dq, dk and dv in one function: its time stands
+        # beside each backward kernel
+        "flash_attention_bwd_dq": dict(
+            max_abs_err=c["err_dq"], ms=time_ms(lambda: fl._dq_kernel(*c["bwd"]), n=10),
+            plain_ms=plain_bwd),
+        "flash_attention_bwd_dkv": dict(
+            max_abs_err=c["err_dkv"], ms=time_ms(lambda: fl._dkv_kernel(*c["bwd"]), n=10),
+            plain_ms=plain_bwd),
+    }
+
+
 # ----------------------------------------------------------------------
 # Phases 4 and 5: the engine
 # ----------------------------------------------------------------------
@@ -193,7 +318,9 @@ def make_request(rng, vocab: int, prompt_len: int, image_size: int = 0, patch: i
     return batch
 
 
-def check_f32_card_vs_cpu() -> None:
+def small_f32_models():
+    """The same seeded float32 model (head_dim 128, two layers, a ViT of
+    head dim 64) on the CPU and on the card."""
     llm = LlamaConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024,
                       num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
                       dtype=torch.float32)
@@ -206,6 +333,11 @@ def check_f32_card_vs_cpu() -> None:
     cpu_model.init_weights(torch.Generator().manual_seed(0))
     gpu_model = MultimodalModel(cfg, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
+    return cpu_model, gpu_model
+
+
+def check_f32_card_vs_cpu() -> None:
+    cpu_model, gpu_model = small_f32_models()
     ecfg = EngineConfig(max_slots=4, max_seq_len=128, prefill_buckets=(32, 64),
                         page_size=16, decode_chunk=8, do_sample=False, max_new_tokens=12)
     rng = np.random.default_rng(1)
@@ -241,13 +373,7 @@ def full_width_model() -> MultimodalModel:
     return model
 
 
-def run_full_width() -> dict:
-    t0 = time.perf_counter()
-    model = full_width_model()
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  model: {n_params / 1e9:.3f} B params, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+def run_full_width(model: MultimodalModel) -> dict:
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=640, prefill_buckets=(512,), page_size=128,
         decode_chunk=8, temperature=0.7))
@@ -324,6 +450,163 @@ def run_full_width() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# Phases 6 and 7: the trainer
+# ----------------------------------------------------------------------
+class RecordingLogger(MetricsLogger):
+    """The trainer's stdout/JSONL logger, keeping every step's metrics."""
+
+    def __init__(self, cfg: TrainerConfig):
+        super().__init__(cfg)
+        self.records = []
+
+    def log(self, step: int, metrics: dict) -> None:
+        super().log(step, metrics)
+        self.records.append({"step": step, **metrics})
+
+
+def train_batch(rng, vocab: int, valid, seq: int, image_size: int, patch: int,
+                images_per_row: int, image_at: int = 8, gap: int = 8) -> dict:
+    """A collated SFT batch as the JAX collator shapes it: one row per entry
+    of ``valid`` (its valid length; right padding to ``seq``), each with a
+    user turn holding ``images_per_row`` uint8 images of
+    (image_size/patch)^2 embeddings, then the assistant's tokens. Labels are
+    -100 on the user turn (images included) and on the padding."""
+    B, n_emb = len(valid), (image_size // patch) ** 2
+    mask = (np.arange(seq)[None, :] < np.asarray(valid)[:, None]).astype(np.int32)
+    ids = np.where(mask == 1, rng.integers(2, vocab, (B, seq)), 0).astype(np.int32)
+    labels = np.where(mask == 1, ids, -100).astype(np.int32)
+    starts = image_at + np.arange(images_per_row) * (n_emb + gap)
+    labels[:, :starts[-1] + n_emb + gap] = -100  # the user turn
+    positions = np.where(mask == 1, np.cumsum(mask, axis=-1) - 1, 0).astype(np.int32)
+    span = (starts[:, None] + np.arange(n_emb)[None, :]).reshape(-1)
+    return {
+        "input_ids": ids, "attention_mask": mask, "labels": labels, "position_ids": positions,
+        "mm_inputs": {"image": {
+            "values": rng.integers(0, 256, (B * images_per_row, image_size, image_size, 3),
+                                   dtype=np.uint8),
+            "batch_idx": np.repeat(np.arange(B, dtype=np.int32), images_per_row * n_emb),
+            "token_pos": np.tile(span, B).astype(np.int32),
+        }},
+    }
+
+
+def train(model, batches, num_steps: int, output_dir: str, **cfg) -> tuple:
+    trainer = MultimodalTrainer(model, TrainerConfig(
+        learning_rate=1e-3, min_lr=1e-4, warmup_steps=1, total_steps=20,
+        output_dir=output_dir, **cfg))
+    logger = RecordingLogger(trainer.cfg)
+    trainer.train(iter(batches), num_steps=num_steps, logger=logger)
+    logger.close()
+    return trainer, logger.records
+
+
+def check_train_f32_card_vs_cpu() -> None:
+    """3 optimizer steps in ALIGNMENT (no remat) and in FULL (remat,
+    grad_accum=2) on the card and on the CPU, same weights and batches.
+
+    Losses must agree to 1e-4 relative at every step. Parameters: 99.99% of
+    the elements within 1e-5 and every element within 1e-3 after the steps.
+    Adam divides each gradient element by its own running magnitude, so an
+    element whose gradient is mostly rounding noise can take a step of
+    either sign, up to lr = 1e-3 per step, on either device; the bound on
+    the share of such elements is what holds the card to the CPU."""
+    rng = np.random.default_rng(2)
+    batches = [train_batch(rng, 1024, valid, 128, 32, 8, 1) for valid in ([128, 96], [80, 128])]
+    for mode, remat, accum in ((TrainingMode.ALIGNMENT, False, 1),
+                               (TrainingMode.FULL, True, 2)):
+        cpu_model, gpu_model = small_f32_models()
+        start = cpu_model.modalities["image"].projector.fc1.weight.detach().clone()
+        steps = [batches[i % 2] for i in range(3 * accum)]
+        cfg = dict(training_mode=mode, remat=remat, grad_accum=accum)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launch_counts(TRAINING + SERVING)
+            card, card_log = train(gpu_model, steps, len(steps), tmp, **cfg)
+            counts = launch_counts(TRAINING + ("encoder_attention",))
+            cpu, cpu_log = train(cpu_model, steps, len(steps), tmp, **cfg)
+        card_loss = np.array([r["loss"] for r in card_log])
+        cpu_loss = np.array([r["loss"] for r in cpu_log])
+        loss_err = float(np.max(np.abs(card_loss - cpu_loss) / np.abs(cpu_loss)))
+        diffs = {name: (a.detach().cpu() - b.detach()).abs().flatten()
+                 for (name, a), b in zip(card.model.named_parameters(), cpu.model.parameters())}
+        worst = max(diffs, key=lambda n: diffs[n].max().item())
+        param_err = diffs[worst].max().item()
+        off_share = sum(int((d > 1e-5).sum()) for d in diffs.values()) / sum(
+            d.numel() for d in diffs.values())
+        moved = (gpu_model.modalities["image"].projector.fc1.weight.detach().cpu()
+                 - start).abs().max()
+        log(f"  {mode.value}: card losses {card_loss.round(6).tolist()}, relative error "
+            f"{loss_err:.2e}; params max_abs_err {param_err:.2e} ({worst}), share of "
+            f"elements off by > 1e-5: {off_share:.2e} (projector moved {moved.item():.2e}); "
+            f"launches {counts}")
+        if not (loss_err <= 1e-4 and param_err <= 1e-3 and off_share <= 1e-4
+                and moved.item() > 1e-3):
+            raise AssertionError(f"f32 trainer on the card disagrees with the CPU ({mode.value})")
+        if not all(counts.values()):
+            raise AssertionError(f"a kernel was not launched by the f32 trainer: {counts}")
+
+
+def run_train_full_width(model: MultimodalModel) -> dict:
+    """ALIGNMENT at full width (config/config_alignment.yaml's batch 4 x 4096,
+    16 images, remat): one warm-up step, then 3 timed steps."""
+    vocab = model.config.llm.vocab_size
+    batch = train_batch(np.random.default_rng(3), vocab, [4096, 3584, 2560, 1536], 4096,
+                        224, 14, 4)
+    llm, tower = model.llm, model.modalities["image"].embedder
+    frozen = {"embed_tokens[:64]": lambda: llm.embed_tokens.weight[:64],
+              "lm_head[:64]": lambda: llm.lm_head.weight[:64],
+              "layers.0.q_proj": lambda: llm.layers[0].q_proj.weight,
+              "layers.31.down_proj": lambda: llm.layers[31].down_proj.weight,
+              "final_norm": lambda: llm.final_norm.weight,
+              "tower.patch_proj": lambda: tower.patch_proj.weight,
+              "tower.layers.23.fc2": lambda: tower.layers[23].fc2.weight}
+    before = {name: get().detach().clone() for name, get in frozen.items()}
+    projector = model.modalities["image"].projector.fc1.weight
+    proj_before = projector.detach().clone()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = MultimodalTrainer(model, TrainerConfig(
+            learning_rate=1e-4, min_lr=1e-5, total_steps=100,
+            training_mode=TrainingMode.ALIGNMENT, remat=True, output_dir=tmp))
+        logger = RecordingLogger(trainer.cfg)
+        trainer.train(iter([batch]), num_steps=1, logger=logger)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(TRAINING + SERVING)
+        t0 = time.perf_counter()
+        last = trainer.train(iter([batch] * 3), num_steps=4, logger=logger)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts(TRAINING + ("encoder_attention",))
+        logger.close()
+    timed = logger.records[1:]
+    losses = [r["loss"] for r in timed]
+    log(f"  losses {losses}, step times {[round(r['step_time_s'], 3) for r in timed]} s, "
+        f"launches {counts}")
+    if len(timed) != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"full-width ALIGNMENT steps: {timed}")
+    if torch.equal(projector, proj_before):
+        raise AssertionError("the projector did not change")
+    for name, get in frozen.items():
+        if not torch.equal(get(), before[name]):
+            raise AssertionError(f"frozen parameter {name} changed")
+    if counts["flash_attention_fwd"] < 64 * 3:
+        raise AssertionError("K1 launched fewer than 64 times per step (32 + 32 recompute)")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if counts[name] < 32 * 3:
+            raise AssertionError(f"{name} launched fewer than 32 times per step")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not peak < total:
+        raise AssertionError(f"peak memory {peak} not under the card's {total}")
+    out = dict(losses=losses, step_time_s=[r["step_time_s"] for r in timed],
+               tokens_per_step=int(batch["input_ids"].size), wall_s=wall,
+               tokens_per_sec=last["tokens_per_sec"], mfu=last["mfu"],
+               max_memory_allocated_gb=peak / 1e9, launches=counts)
+    log(f"  {out['tokens_per_sec']:.0f} tokens/s, MFU {out['mfu']:.4f}, "
+        f"peak memory {out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -344,28 +627,48 @@ def main() -> int:
     log(f"[2] build: {time.perf_counter() - t0:.1f} s ({nvcc}) -> "
         f"{_build.library_path().relative_to(_build.BUILD_DIR.parent.parent)}")
 
-    log("[3] kernels vs plain twins (times: median of 20, ms)")
+    log("[3] kernels vs plain twins (times: median of 20 calls, of 10 for flash; ms)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for name, check in (("encoder_attention", check_encoder_attention),
-                        ("ring_decode_attention", check_ring_decode),
-                        ("fold_ring_into_pages", check_fold)):
+    for names, check in ((("encoder_attention",), check_encoder_attention),
+                         (("ring_decode_attention",), check_ring_decode),
+                         (("fold_ring_into_pages",), check_fold),
+                         (TRAINING, check_flash)):
         for dtype in (torch.float32, torch.bfloat16):
             res = check(dtype, gen)
-            log(f"  {name} {str(dtype)[6:]}: kernel {res['ms']:.4f} ms, "
-                f"plain {res['plain_ms']:.4f} ms")
-        results[name] = res  # the bf16 numbers, the serving path's dtype
+            res = res if len(names) > 1 else {names[0]: res}
+            for name in names:
+                log(f"  {name} {str(dtype)[6:]}: kernel {res[name]['ms']:.4f} ms, "
+                    f"plain {res[name]['plain_ms']:.4f} ms")
+        results.update(res)  # the bf16 numbers, the full-width paths' dtype
+    torch.cuda.empty_cache()
 
     log("[4] f32 engine: card vs CPU, greedy")
     check_f32_card_vs_cpu()
 
     log("[5] full width: Llama-3.1-8B widths + CLIP ViT-L/14, bf16, 8 requests")
-    full = run_full_width()
+    t0 = time.perf_counter()
+    model = full_width_model()
+    torch.cuda.synchronize()
+    log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    full = run_full_width(model)
+    gc.collect()
+    torch.cuda.empty_cache()  # the engine and its KV pool are gone
 
+    log("[6] f32 trainer: card vs CPU, 3 optimizer steps, ALIGNMENT and FULL")
+    check_train_f32_card_vs_cpu()
+
+    log("[7] full width ALIGNMENT: batch 4 x 4096, 16 images, remat, bf16")
+    trained = run_train_full_width(model)
+
+    # each kernel's launches in the full-width run of its path
+    launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING}}
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-                    launches=full["launches"][name], **results[name])
+                    launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
     print(json.dumps({"full_width": {k: v for k, v in full.items() if k != "launches"}}))
+    print(json.dumps({"train_full_width": trained}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

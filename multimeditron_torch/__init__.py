@@ -12,7 +12,10 @@ raises. Nothing falls back.
 
 Ported so far: the paged serving path — CLIP/SigLIP ViT tower, MLP
 projector, multimodal splice, Llama decoder (no cache, contiguous prefill
-cache, paged ring decode) and the paged continuous-batching engine.
+cache, paged ring decode) and the paged continuous-batching engine — and
+the SFT training path: the training forward with per-layer remat and the
+flash attention kernels, the loss, staged freezing and the masked AdamW
+trainer with checkpoints and a data loader.
 
 This package imports ``torch`` and ``numpy``; from the JAX package only the
 framework-free ``multimeditron_tpu.constants`` and

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
-plain C interface, loaded with ``ctypes``. No PyTorch header is included, so
-the build takes seconds. The library lands in ``multimeditron_torch/build/``
+plain C interface, loaded with ``ctypes``: one ``nvcc`` process per source,
+all started together, then one link. No PyTorch header is included, so the
+build takes seconds. The library lands in ``multimeditron_torch/build/``
 under a name that carries a hash of the sources and flags: an edit rebuilds
 it, an unchanged tree reuses it.
 
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -49,6 +50,15 @@ SIGNATURES = {
     # L, B, Hkv, D, n_pages, P, pm, T, rows, dtype, stream
     "mmt_fold_ring_into_pages": (_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, kv_mask (or NULL), o, lse, B, H, Hkv, Sq, Skv, D, causal,
+    # offset, scale, dtype, stream
+    "mmt_flash_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, lse, di, kv_mask (or NULL), dq, then as the forward
+    "mmt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, lse, di, kv_mask (or NULL), dk, dv, then as the forward
+    "mmt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,17 +92,31 @@ def library_path() -> Path:
 def _compile(out: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objects)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log)
+                  for src, p, log in zip(sources, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({code}):\n{log}" for name, code, log in failed))
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+from typing import Dict
 
 import torch
 from torch import nn
@@ -35,7 +36,7 @@ class BaseModalityConfig:
 
 
 class BaseModality(nn.Module, abc.ABC):
-    """Device side: the encoder module and its random init."""
+    """Device side: the encoder module, its random init and its freeze mask."""
 
     config_class: type = BaseModalityConfig
 
@@ -50,6 +51,11 @@ class BaseModality(nn.Module, abc.ABC):
     @abc.abstractmethod
     def encode(self, values: torch.Tensor) -> torch.Tensor:
         """(N, *value_shape) -> (N, num_embeddings, llm_hidden)."""
+
+    @abc.abstractmethod
+    def trainable_mask(self, train_embedder: bool, train_projector: bool) -> Dict[str, bool]:
+        """Parameter name -> trainable, also set as each parameter's
+        ``requires_grad``."""
 
 
 class _ModalityRegistry(Registry):

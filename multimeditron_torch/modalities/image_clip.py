@@ -9,6 +9,7 @@ float32 on the device before the tower. The int8 towers are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import torch
 
@@ -85,6 +86,14 @@ class ImageModality(BaseModality):
     def encode(self, values: torch.Tensor) -> torch.Tensor:
         feats = self.embedder(self._normalize_wire(values), drop_cls=True)
         return self.projector(feats)
+
+    def trainable_mask(self, train_embedder: bool, train_projector: bool) -> Dict[str, bool]:
+        mask = {}
+        for part, flag in (("embedder", train_embedder), ("projector", train_projector)):
+            for name, p in getattr(self, part).named_parameters():
+                p.requires_grad_(flag)
+                mask[f"{part}.{name}"] = flag
+        return mask
 
 
 @dataclasses.dataclass

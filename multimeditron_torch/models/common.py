@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, rotary embeddings, activations, init.
+"""Shared building blocks: norms, rotary embeddings, the loss, activations, init.
 
 Counterpart of ``multimeditron_tpu/models/common.py``. Computations that
 affect numerics (norms, rotary, activations) run in float32 whatever the
@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multimeditron_tpu.constants import IGNORE_TOKEN_INDEX
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -116,6 +118,26 @@ def apply_rope(x: torch.Tensor, position_ids: torch.Tensor,
         raise ValueError(
             f"position_ids must be (B,S) or (B,S,2), got {tuple(position_ids.shape)}")
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Losses
+# ----------------------------------------------------------------------
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = IGNORE_TOKEN_INDEX) -> torch.Tensor:
+    """Mean next-token cross entropy over non-ignored positions, in float32.
+
+    logits (B, S, V) and labels (B, S); the causal shift (predict labels[t+1]
+    from logits[t]) happens here, as in the JAX ``cross_entropy_loss``.
+    """
+    logits = logits[:, :-1, :].float()
+    targets = labels[:, 1:].long()
+    valid = targets != ignore_index
+    safe_targets = torch.where(valid, targets, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, safe_targets[..., None])[..., 0]
+    nll = (logz - picked) * valid
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 # ----------------------------------------------------------------------

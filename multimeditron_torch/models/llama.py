@@ -1,7 +1,8 @@
 """Llama-architecture decoder (Llama-2/3, Qwen3/Apertus-compatible GQA).
 
-Counterpart of ``multimeditron_tpu/models/llama.py`` for the serving path:
-the decoder without a cache, with a contiguous cache in prefill mode (the
+Counterpart of ``multimeditron_tpu/models/llama.py`` for the serving and
+training paths: the decoder without a cache (optionally rematerialised per
+layer for training), with a contiguous cache in prefill mode (the
 serving engine's local prefill cache), and the paged single-token decode
 step against a page pool + per-chunk ring (kernel K4). Supports GQA, RoPE
 with HF llama3 scaling and 2-D position ids, optional QK-norm, gated and
@@ -21,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimeditron_torch.models.common import (
     RMSNorm,
@@ -309,6 +311,7 @@ class Llama(nn.Module):
         kv_cache: Optional[Cache] = None,
         prefill: bool = False,
         return_hidden: bool = False,
+        remat: bool = False,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """Run the decoder. Returns (logits, updated_cache_or_None).
 
@@ -320,6 +323,10 @@ class Llama(nn.Module):
         instead of logits: XLA drops the JAX version's unused logits, eager
         PyTorch would compute them, so the caller projects only the rows it
         needs with :meth:`lm_head_logits`.
+
+        ``remat=True`` on the no-cache forward keeps only each layer's input
+        for the backward pass and recomputes the layer there (the JAX
+        ``jax.checkpoint(scan_body)``).
         """
         x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
         B, S, _ = x.shape
@@ -335,8 +342,13 @@ class Llama(nn.Module):
                 position_ids = torch.where(attention_mask == 0, 0, position_ids)
         inv_freq = rope_frequencies(self.cfg.head_dim_, self.cfg.rope_theta,
                                     self.cfg.rope_scaling, device=dev)
+        checkpointed = remat and kv_cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, position_ids, attention_mask, inv_freq, kv_cache, i, prefill)
+            if checkpointed:
+                x = checkpoint(layer, x, position_ids, attention_mask, inv_freq,
+                               use_reentrant=False)
+            else:
+                x = layer(x, position_ids, attention_mask, inv_freq, kv_cache, i, prefill)
         x = self.final_norm(x)
         new_cache = None
         if kv_cache is not None:

@@ -1,22 +1,33 @@
 """The multimodal causal LM: modality embeddings spliced into the token
 stream at attachment positions.
 
-Counterpart of ``multimeditron_tpu/models/multimodal.py`` (config, embed
-splice, random init and ``resize_embeddings``). Training (``forward`` with
-the loss, ``trainable_mask``) arrives with the training path.
+Counterpart of ``multimeditron_tpu/models/multimodal.py``: config, embed
+splice, random init, ``resize_embeddings``, the training forward with its
+loss and the staged-freezing masks (``TrainingMode``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import enum
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from multimeditron_torch.modalities import AutoModality
 from multimeditron_torch.modalities.base import BaseModalityConfig
+from multimeditron_torch.models.common import cross_entropy_loss
 from multimeditron_torch.models.llama import Llama, LlamaConfig
+
+
+class TrainingMode(str, enum.Enum):
+    """Staged SFT modes, with the JAX package's values."""
+
+    ALIGNMENT = "ALIGNMENT"  # projector only
+    END2END = "END2END"      # llm + projectors
+    LM_ONLY = "LM_ONLY"      # llm only
+    FULL = "FULL"            # everything
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -113,8 +124,36 @@ class MultimodalModel(nn.Module):
             bi, tp = pack["batch_idx"].long(), pack["token_pos"].long()
             # out-of-range targets are dropped, like JAX's scatter mode="drop"
             keep = (bi >= 0) & (bi < B) & (tp >= 0) & (tp < S)
-            embeds[bi[keep], tp[keep]] = flat[keep]
+            embeds[bi[keep], tp[keep]] = flat[keep]  # autograd reaches the projector
         return embeds
+
+    def forward(self, batch: Dict[str, Any],
+                remat: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(logits, loss or None) for a collated batch of tensors, as the JAX
+        ``MultimodalModel.forward``: the loss when ``labels`` are present."""
+        embeds = self.embed(batch["input_ids"], batch.get("mm_inputs"))
+        logits, _ = self.llm(inputs_embeds=embeds, attention_mask=batch.get("attention_mask"),
+                             position_ids=batch.get("position_ids"), remat=remat)
+        loss = None
+        if batch.get("labels") is not None:
+            loss = cross_entropy_loss(logits, batch["labels"])
+        return logits, loss
+
+    def trainable_mask(self, mode: TrainingMode) -> Dict[str, bool]:
+        """Parameter name -> trainable in ``mode``; each parameter's
+        ``requires_grad`` is set to match (the JAX ``trainable_mask``)."""
+        mode = TrainingMode(mode)
+        train_llm = mode in (TrainingMode.END2END, TrainingMode.LM_ONLY, TrainingMode.FULL)
+        train_proj = mode in (TrainingMode.ALIGNMENT, TrainingMode.END2END, TrainingMode.FULL)
+        train_embedder = mode == TrainingMode.FULL
+        mask = {}
+        for name, p in self.llm.named_parameters():
+            p.requires_grad_(train_llm)
+            mask[f"llm.{name}"] = train_llm
+        for mtype, mod in self.modalities.items():
+            for name, flag in mod.trainable_mask(train_embedder, train_proj).items():
+                mask[f"modalities.{mtype}.{name}"] = flag
+        return mask
 
 
 @torch.no_grad()

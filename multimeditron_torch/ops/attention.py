@@ -1,9 +1,15 @@
-"""Attention in plain PyTorch ops: the LLM prefill path.
+"""LLM attention: dispatch between the flash kernels and plain tensor ops.
 
-Counterpart of ``multimeditron_tpu/ops/attention.py``. On the serving path
-the JAX package computes prefill attention with ``attention_xla`` (per-sample
-``causal_offset`` forces it, ``ops/attention.py:109-112``), outside any
-Pallas kernel, so the port computes it in plain tensor ops too.
+Counterpart of ``multimeditron_tpu/ops/attention.py``. Dispatch rule of
+:func:`attention`:
+
+- a CUDA tensor with a scalar or absent ``causal_offset`` (the no-cache
+  forward: training, scoring) goes to ``ops.flash_attention`` (kernels K1,
+  K2a, K2b), at every sequence length;
+- a per-sample ``causal_offset`` (B,) — the serving engine's prefill into its
+  cache — stays on :func:`attention_plain`, as in the JAX package, whose
+  flash kernel takes one static offset (``ops/attention.py:109-112``);
+- a CPU tensor runs :func:`attention_plain`.
 
 Contract (shared with the JAX package):
   q: (B, H, Sq, D)   k, v: (B, Hkv, Skv, D) with H % Hkv == 0 (GQA)
@@ -18,6 +24,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from multimeditron_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -81,9 +89,13 @@ def attention(
     sm_scale: Optional[float] = None,
     causal_offset: Optional[Union[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Entry point the models call. The serving path's prefill takes the
-    plain branch on every device, as in the JAX package; the flash kernel
-    (K1/K2, training and long-sequence decode) joins here when it is ported.
-    """
+    """Entry point the models call; the dispatch rule is in the module
+    docstring. The JAX package's 1024-key crossover was measured on a TPU,
+    so no length threshold is carried over."""
+    per_sample = isinstance(causal_offset, torch.Tensor) and causal_offset.dim() >= 1
+    if q.device.type == "cuda" and not per_sample:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               kv_mask=kv_mask, causal=causal, sm_scale=sm_scale,
+                               causal_offset=causal_offset)
     return attention_plain(q, k, v, kv_mask=kv_mask, causal=causal,
                            sm_scale=sm_scale, causal_offset=causal_offset)

@@ -7,6 +7,10 @@ the caller drops.
 
 ``encoder_attention`` runs the CUDA kernel ``csrc/encoder_attention.cu`` on a
 CUDA tensor and the plain twin ``encoder_attention_plain`` on a CPU tensor.
+On the card the kernel sits in a ``torch.autograd.Function`` whose backward
+recomputes through the plain twin and returns its vjp, as the JAX
+``custom_vjp`` recomputes through its XLA reference: the JAX package has no
+backward kernel for K3, so neither has the port.
 """
 
 from __future__ import annotations
@@ -74,12 +78,35 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh % 2:
         raise ValueError(f"the kernel takes an even head dim, got {dh}")
 
-    lib = _build.library()
+    return _EncoderAttention.apply(q, k, v, num_heads, float(sm_scale), kv_len)
+
+
+def _kernel(q, k, v, num_heads: int, sm_scale: float, kv_len: int) -> torch.Tensor:
+    B, S, D = q.shape
     o = torch.empty_like(q)
-    code = lib.mmt_encoder_attention(
+    code = _build.library().mmt_encoder_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, S, num_heads, dh, kv_len, float(sm_scale),
+        B, S, num_heads, D // num_heads, kv_len, sm_scale,
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     _build.check("encoder_attention", code)
     launches["encoder_attention"] += 1
     return o
+
+
+class _EncoderAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: vjp of the plain twin, recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, sm_scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (num_heads, sm_scale, kv_len)
+        return _kernel(q, k, v, num_heads, sm_scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = encoder_attention_plain(*qkv, *ctx.args)
+            dq, dk, dv = torch.autograd.grad(o, qkv, do)
+        return dq, dk, dv, None, None, None

@@ -6,14 +6,18 @@ with one (and without JAX), run from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Shapes are small and cover the edges the main path's shapes miss: tiny head
-dims, ragged sequences, GQA groups from 1 to 8, empty slots.
+dims, ragged sequences, GQA groups from 1 to 8, empty slots, fully masked
+attention rows. Gradients are compared relative to the largest gradient
+value (they are not of order 1): f32 1e-4, bf16 2e-2.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from multimeditron_torch.ops import attention as attn
 from multimeditron_torch.ops import encoder_attention as enc
+from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +113,127 @@ def test_fold_kernel(gen, dtype):
         torch.cuda.synchronize()
         assert torch.equal(kk[:, :, 1:], kt[:, :, 1:])
         assert torch.equal(vk[:, :, 1:], vt[:, :, 1:])
+
+
+# ----------------------------------------------------------------------
+# K3 gradient (the CUDA forward's autograd Function)
+# ----------------------------------------------------------------------
+def _rel_err(got, want):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [None, 40])
+def test_encoder_attention_kernel_gradient(gen, dtype, kv_len):
+    B, S, H, Dh = 2, 65, 4, 64
+    qkv = [torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype).requires_grad_()
+           for _ in range(3)]
+    do = torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
+    n = kv_len or S
+    do[:, n:] = 0  # rows past kv_len are garbage by contract
+    before = enc.launches["encoder_attention"]
+    out = enc.encoder_attention(*qkv, H, kv_len=kv_len)
+    assert out.grad_fn is not None
+    assert enc.launches["encoder_attention"] == before + 1
+    got = torch.autograd.grad(out, qkv, do)
+    want = torch.autograd.grad(enc.encoder_attention_plain(*qkv, H, Dh ** -0.5, kv_len), qkv, do)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+# ----------------------------------------------------------------------
+# K1 / K2a / K2b flash attention
+# ----------------------------------------------------------------------
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_CASES = [
+    # B, H, Hkv, Sq, Skv, D, causal, causal_offset, mask
+    (2, 4, 2, 200, 200, 64, True, None, None),         # ragged tiles
+    (1, 8, 1, 64, 64, 128, True, None, "left"),        # rows with no valid key
+    (2, 4, 4, 8, 256, 128, True, None, None),          # end-aligned decode rows
+    (1, 6, 2, 100, 130, 64, False, None, "holes"),     # non-causal GQA
+    (1, 4, 2, 70, 300, 128, True, 0, "right"),         # explicit offset
+    (1, 8, 8, 130, 130, 128, True, -20, None),         # negative offset: empty rows
+]
+
+
+def _flash_case(gen, dtype, B, H, Hkv, Sq, Skv, D, mask):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    q, k, v = randn(B, H, Sq, D), randn(B, Hkv, Skv, D), randn(B, Hkv, Skv, D)
+    kv_mask = None
+    if mask is not None:
+        kv_mask = torch.ones(B, Skv, dtype=torch.int32, device="cuda")
+        if mask == "left":
+            kv_mask[:, : Skv // 2] = 0
+        elif mask == "right":
+            kv_mask[:, Skv - 37:] = 0
+        else:
+            kv_mask[:, 3:9] = 0
+            kv_mask[:, 70:] = 0
+    return q, k, v, kv_mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_kernel(gen, dtype, case):
+    B, H, Hkv, Sq, Skv, D, causal, off, mask = case
+    q, k, v, kv_mask = _flash_case(gen, dtype, B, H, Hkv, Sq, Skv, D, mask)
+    before = fl.launches["flash_attention_fwd"]
+    o, lse = fl._fwd_kernel(q, k, v, kv_mask, causal, D ** -0.5,
+                            Skv - Sq if off is None else off)
+    assert fl.launches["flash_attention_fwd"] == before + 1
+    o_ref, lse_ref = fl.flash_attention_fwd_plain(q, k, v, kv_mask, causal, causal_offset=off)
+    _assert_close(o, o_ref, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(lse == fl.MASK_VALUE, lse_ref == fl.MASK_VALUE)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert not o[lse == fl.MASK_VALUE].any()  # no valid key: an exact zero row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_backward_kernels(gen, dtype, case):
+    B, H, Hkv, Sq, Skv, D, causal, off, mask = case
+    q, k, v, kv_mask = _flash_case(gen, dtype, B, H, Hkv, Sq, Skv, D, mask)
+    offset = Skv - Sq if off is None else off
+    o, lse = fl.flash_attention_fwd_plain(q, k, v, kv_mask, causal, causal_offset=off)
+    do = torch.randn(o.shape, generator=gen, device="cuda", dtype=dtype)
+    got = fl._bwd_kernel(q, k, v, kv_mask, o, lse, do, causal, D ** -0.5, offset)
+    want = fl.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal,
+                                        causal_offset=off)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= GRAD_TOL[dtype]
+    if kv_mask is not None:  # masked keys get exactly zero dk and dv
+        dead = (kv_mask == 0)[:, None, :, None].expand_as(got[1])
+        assert not got[1][dead].any() and not got[2][dead].any()
+
+
+def test_attention_dispatch_runs_flash_with_autograd(gen):
+    B, H, Hkv, S, D = 2, 4, 2, 96, 128
+    q, k, v, kv_mask = _flash_case(gen, torch.float32, B, H, Hkv, S, S, D, "right")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    counts = dict(fl.launches)
+    out = attn.attention(q, k, v, kv_mask=kv_mask, causal=True)
+    (out.float() ** 2).sum().backward()
+    assert {n: fl.launches[n] - counts[n] for n in counts} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    ref = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = attn.attention_plain(*ref, kv_mask=kv_mask, causal=True)
+    (want ** 2).sum().backward()
+    _assert_close(out, want, torch.float32)
+    for a, b in zip((q, k, v), ref):
+        assert _rel_err(a.grad, b.grad) <= GRAD_TOL[torch.float32]
+    # a per-sample offset (serving prefill) stays on the plain path
+    before = fl.launches["flash_attention_fwd"]
+    attn.attention(q.detach(), k.detach(), v.detach(), causal=True,
+                   causal_offset=torch.zeros(B, dtype=torch.int32, device="cuda"))
+    assert fl.launches["flash_attention_fwd"] == before
+
+
+def test_flash_wrapper_rejects_unsupported_head_dim(gen):
+    q = torch.randn(1, 2, 16, 32, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        fl.flash_attention(q, q, q)

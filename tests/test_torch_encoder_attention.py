@@ -1,6 +1,7 @@
 """Port parity: K3 encoder attention's plain twin against the JAX Pallas
 kernel (interpret mode) and its XLA reference, f32, on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,3 +56,21 @@ def test_wrapper_rejects_bad_input():
         te.encoder_attention(q, k, v, 2, kv_len=0)
     with pytest.raises(ValueError, match="dtype"):
         te.encoder_attention(q.double(), k.double(), v.double(), 2)
+
+
+@pytest.mark.parametrize("kv_len", [None, 13])
+def test_gradient_matches_jax_vjp(kv_len):
+    """The port's K3 gradient (on the CPU: autograd of the twin; on the card:
+    the kernel's autograd Function, which recomputes through the twin)
+    equals jax.vjp of the JAX custom_vjp."""
+    B, S, H, Dh = 2, 17, 4, 8
+    q, k, v = _make(B, S, H, Dh, seed=2)
+    do = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+    qkv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(te.encoder_attention(*qkv, H, kv_len=kv_len), qkv,
+                              torch.from_numpy(do))
+    _, vjp = jax.vjp(lambda q, k, v: encoder_attention(q, k, v, H, kv_len=kv_len,
+                                                       interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    for a, b, name in zip(got, vjp(jnp.asarray(do)), "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL, err_msg=f"d{name}")

@@ -1,5 +1,5 @@
-"""Import hygiene of the port: multimeditron_torch, its engine and
-chip_smoke's module graph import with JAX, PIL, yaml and transformers
+"""Import hygiene of the port: multimeditron_torch, its engine, its trainer
+and chip_smoke's module graph import with JAX, PIL, yaml and transformers
 unavailable — the card's machine promises none of them."""
 
 import pathlib
@@ -17,6 +17,11 @@ for name in {BLOCKED!r}:
 import multimeditron_torch
 import multimeditron_torch.convert
 import multimeditron_torch.serve.engine
+import multimeditron_torch.ops.flash_attention
+import multimeditron_torch.profiling
+import multimeditron_torch.train.checkpoint
+import multimeditron_torch.train.data
+import multimeditron_torch.train.trainer
 import chip_smoke
 loaded = sorted(m for m in sys.modules if m.startswith("multimeditron_tpu"))
 print(",".join(loaded))
