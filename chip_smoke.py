@@ -10,11 +10,17 @@ Phases, each of which raises on failure (non-zero exit):
    power limit;
 2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/;
 3. kernels: each kernel (K3 encoder attention and its gradient, K4 ring
-   decode attention, K5 ring fold, K1 flash forward, K2a/K2b flash backward)
-   against its plain PyTorch twin on the card, at the main paths' shapes, in
-   float32 and bfloat16, with CUDA-event timings;
+   decode attention, K6 ring verify attention, K5 ring fold, K1 flash forward,
+   K2a/K2b flash backward) against its plain PyTorch twin on the card, at the
+   main paths' shapes, in float32 and bfloat16, with CUDA-event timings, the
+   least time the card could take (bytes over 3.35 TB/s or FLOPs over the
+   dtype's peak, the larger) and, where one PyTorch call computes the same
+   function, that call's time;
 4. serving end to end in float32: the serving engine on the card against the
-   same engine and weights on the CPU (greedy tokens must be equal);
+   same engine and weights on the CPU: greedy tokens, speculative greedy
+   (k = 2, 4) equal to plain greedy, speculative sampling (k = 2, 4) equal
+   across k and devices, a forked group, a chunked long prompt and staggered
+   admission;
 5. serving at full width: seeded random weights at Llama-3.1-8B widths plus
    the CLIP ViT-L/14 tower in bfloat16, 8 requests of 512 prompt tokens with
    one 224x224 uint8 image each and 64 new tokens, through submit() and
@@ -25,11 +31,16 @@ Phases, each of which raises on failure (non-zero exit):
 7. training at full width: the phase-5 model, ALIGNMENT (projector only,
    remat), one collated batch of 4 x 4096 tokens with 16 uint8 images,
    through MultimodalTrainer.train(): one warm-up step, then 3 timed steps;
+   counts each kernel's launches in that run;
+8. speculative serving at full width: the phase-5 model with k = 4, greedy,
+   8 slots: 3 requests of 512 tokens, a forked group of 4 over a 512-token
+   prompt and a 1,000-token prompt that prefills in two chunks, each with
+   one image and 64 new tokens, through submit(), submit_group() and run();
    counts each kernel's launches in that run.
 
-The last lines of standard output are JSON objects for the two full-width
-runs, nvidia-smi's name and power limit, a JSON object describing each
-kernel, then {"ok": true, "device": {...}}.
+The last lines of standard output are JSON objects for the full-width runs,
+nvidia-smi's name and power limit, a JSON object describing each kernel,
+then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from multimeditron_torch import _build
 from multimeditron_torch.modalities.image_clip import ImageConfig
@@ -52,6 +64,7 @@ from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalMo
 from multimeditron_torch.ops import encoder_attention as enc
 from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
+from multimeditron_torch.serve import prng
 from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
 from multimeditron_torch.train.trainer import MetricsLogger, MultimodalTrainer, TrainerConfig
 
@@ -61,6 +74,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max-abs, outputs of order 1
 # max|kernel - twin| / max|twin| within the same bounds.
 GRAD_TOL = TOL
 LSE_TOL = 1e-3  # max-abs on the base-2 logsumexp (values of order 10)
+# H100 SXM peaks (NVIDIA's data sheet; dense): device memory and the rate of
+# each input type's arithmetic (bf16 on tensor cores, float32 on CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNELS = {
     "encoder_attention": dict(
         module=enc, source="multimeditron_torch/csrc/encoder_attention.cu",
@@ -68,6 +85,9 @@ KERNELS = {
     "ring_decode_attention": dict(
         module=paged, source="multimeditron_torch/csrc/ring_decode.cu",
         replaces="multimeditron_tpu/ops/paged_attention.py:401"),
+    "ring_verify_attention": dict(
+        module=paged, source="multimeditron_torch/csrc/ring_verify.cu",
+        replaces="multimeditron_tpu/ops/paged_attention.py:634"),
     "fold_ring_into_pages": dict(
         module=paged, source="multimeditron_torch/csrc/fold_ring.cu",
         replaces="multimeditron_tpu/ops/paged_attention.py:780"),
@@ -82,6 +102,7 @@ KERNELS = {
         replaces="multimeditron_tpu/ops/flash_attention.py:368"),
 }
 SERVING = ("encoder_attention", "ring_decode_attention", "fold_ring_into_pages")
+SPEC_SERVING = ("encoder_attention", "ring_verify_attention", "fold_ring_into_pages")
 TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
@@ -93,9 +114,18 @@ def launch_counts(names=SERVING) -> dict:
     return {name: KERNELS[name]["module"].launches[name] for name in names}
 
 
-def reset_launch_counts(names=SERVING) -> None:
+def reset_launch_counts(names=tuple(KERNELS)) -> None:
     for name in names:
         KERNELS[name]["module"].launches[name] = 0
+
+
+def bound(dtype, bytes_moved: float, flops: float) -> dict:
+    """The least time the card could take: each input byte read once and each
+    output byte written once at the memory rate, or the FLOPs at the peak of
+    the inputs' type, whichever is longer."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -165,9 +195,13 @@ def check_encoder_attention(dtype, gen) -> dict:
     for name, a, b in zip("qkv", got, want):
         check_grad(f"{tag} d{name}", a, b, GRAD_TOL[dtype])
     q, k, v = (x.detach() for x in qkv)
+    qh, kh, vh = (x.view(B, S, H, Dh).transpose(1, 2).contiguous() for x in (q, k, v))
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: enc.encoder_attention(q, k, v, H)),
-                plain_ms=time_ms(lambda: enc.encoder_attention_plain(q, k, v, H, scale)))
+                plain_ms=time_ms(lambda: enc.encoder_attention_plain(q, k, v, H, scale)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+                # q, k, v read and o written; QK^T and PV over every pair
+                **bound(dtype, 4 * q.numel() * q.element_size(), 4 * B * H * S * S * Dh))
 
 
 def paged_case(dtype, gen):
@@ -201,9 +235,58 @@ def check_ring_decode(dtype, gen) -> dict:
             c["page_table"], c["pages_len"], c["lengths"], 1)
     err = check_close(f"K4 {str(dtype)[6:]}", paged.ring_decode_attention(*args),
                       paged.ring_decode_attention_plain(*args), TOL[dtype])
+    B, H, D = c["q"].shape
+    Hkv = c["k_pages"].shape[1]
+    keys = int((c["lengths"] + 1).sum())  # pages + ring rows through this step's
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: paged.ring_decode_attention(*args)),
-                plain_ms=time_ms(lambda: paged.ring_decode_attention_plain(*args)))
+                plain_ms=time_ms(lambda: paged.ring_decode_attention_plain(*args)),
+                library_ms=None,  # no single PyTorch call gathers pages + ring
+                **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * c["q"].element_size(),
+                        4 * H * D * keys))
+
+
+def verify_case(dtype, gen, ring_rows):
+    """Llama-3.1-8B verify shapes with k = 4: 8 slots, 32 heads over 8 kv
+    heads, S = 5 block rows, D = 128, pages of 128, pages_max 5, the engine's
+    16-row ring, 2 layers; page lengths spread over 512..576; the block's
+    first ring row at ``ring_rows`` per slot (0 in the engine)."""
+    B, H, Hkv, S, D, P, T, L, pm = 8, 32, 8, 5, 128, 128, 16, 2, 5
+    n_pages = 1 + B * pm
+    pages_len = torch.tensor([512, 520, 527, 535, 543, 551, 560, 576], dtype=torch.int32)
+    table = np.random.default_rng(1).permutation(np.arange(1, n_pages)).reshape(B, pm)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    return dict(
+        q=randn(B, H, S, D), k_pages=randn(L, Hkv, n_pages, P, D),
+        v_pages=randn(L, Hkv, n_pages, P, D), k_ring=randn(L, B, Hkv, T, D),
+        v_ring=randn(L, B, Hkv, T, D),
+        page_table=torch.from_numpy(table.astype(np.int32)).cuda(), pages_len=pages_len.cuda(),
+        lengths=(pages_len + torch.tensor(ring_rows, dtype=torch.int32)).cuda())
+
+
+def check_ring_verify(dtype, gen) -> dict:
+    """K6 with the engine's g = 0 (times and bound from this case) and with
+    g > 0."""
+    t, errs = str(dtype)[6:], []
+    for tag, ring_rows in (("g>0", [0, 1, 2, 3, 4, 5, 6, 11]), ("g=0", [0] * 8)):
+        c = verify_case(dtype, gen, ring_rows)
+        args = (c["q"], c["k_pages"], c["v_pages"], c["k_ring"], c["v_ring"],
+                c["page_table"], c["pages_len"], c["lengths"], 1)
+        errs.append(check_close(f"K6 {t} {tag}", paged.ring_verify_attention(*args),
+                                paged.ring_verify_attention_plain(*args), TOL[dtype]))
+    B, H, S, D = c["q"].shape
+    Hkv = c["k_pages"].shape[1]
+    keys = int((c["lengths"] + S).sum())  # keys each slot's block reads
+    pairs = int((c["lengths"] + 1).sum()) * S + B * S * (S - 1) // 2  # row s sees s more
+    return dict(max_abs_err=max(errs),
+                ms=time_ms(lambda: paged.ring_verify_attention(*args)),
+                plain_ms=time_ms(lambda: paged.ring_verify_attention_plain(*args)),
+                library_ms=None,  # no single PyTorch call gathers pages + ring
+                **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * S * D) * c["q"].element_size(),
+                        4 * H * D * pairs))
 
 
 def check_fold(dtype, gen) -> dict:
@@ -222,9 +305,14 @@ def check_fold(dtype, gen) -> dict:
     log(f"  K5 {str(dtype)[6:]}: pages 1.. max_abs_err={err} (must be 0), rows moved={moved}")
     if not (err == 0.0 and moved):
         raise AssertionError("K5: fold kernel disagrees with its plain twin")
+    L, _, Hkv, _, D = c["k_ring"].shape
+    moved = int((c["lengths"] - c["pages_len"]).clamp(0, rows).sum())  # rows per layer
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: paged.fold_ring_into_pages(kk, vk, *tail)),
-                plain_ms=time_ms(lambda: paged.fold_ring_into_pages_plain(kp, vp, *tail)))
+                plain_ms=time_ms(lambda: paged.fold_ring_into_pages_plain(kp, vp, *tail)),
+                library_ms=None,  # no single PyTorch call scatters by page table
+                # K and V ring rows read and written into their pages
+                **bound(dtype, 2 * 2 * L * moved * Hkv * D * kk.element_size(), 0))
 
 
 def flash_case(dtype, gen, B, H, Hkv, Sq, Skv, D, dead_keys=()):
@@ -284,19 +372,54 @@ def check_flash(dtype, gen) -> dict:
     twin_bwd = (c["q"], c["k"], c["v"], c["kv_mask"], c["o"], c["lse"], c["do"], c["causal"],
                 c["scale"])
     plain_bwd = time_ms(lambda: fl.flash_attention_bwd_plain(*twin_bwd), n=10)
+    # the library yardstick: SDPA with the same causal + key mask, GQA folded
+    q, k, v, kv_mask, do = c["q"], c["k"], c["v"], c["kv_mask"], c["do"]
+    B, H, S, D = q.shape
+    allowed = torch.ones(S, S, dtype=torch.bool, device="cuda").tril() & (kv_mask[:, None, None, :] != 0)
+    sdpa = dict(attn_mask=allowed, scale=c["scale"], enable_gqa=True)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), n=10)
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*qkv, **sdpa)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, qkv, do, retain_graph=True), n=10)
+    del out, qkv
+    # (query, key) pairs the causal mask and the key mask leave: query i
+    # sees the valid keys j <= i
+    pairs = int(kv_mask.cumsum(dim=1).sum())
+    elt, big, small = q.element_size(), q.numel(), k.numel()
+    rows = B * H * S * 4 + kv_mask.numel() * 4  # lse (or di) and the mask, float32/int32
     return {
         "flash_attention_fwd": dict(
             max_abs_err=c["err_o"], ms=time_ms(lambda: fl._fwd_kernel(*fwd), n=10),
-            plain_ms=time_ms(lambda: fl.flash_attention_fwd_plain(*fwd[:-1]), n=10)),
-        # the twin computes dq, dk and dv in one function: its time stands
-        # beside each backward kernel
+            plain_ms=time_ms(lambda: fl.flash_attention_fwd_plain(*fwd[:-1]), n=10),
+            library_ms=lib_fwd,
+            **bound(dtype, (2 * big + 2 * small) * elt + rows, 4 * H * D * pairs)),
+        # the twin and SDPA's backward compute dq, dk and dv in one function:
+        # their times stand beside each backward kernel
         "flash_attention_bwd_dq": dict(
             max_abs_err=c["err_dq"], ms=time_ms(lambda: fl._dq_kernel(*c["bwd"]), n=10),
-            plain_ms=plain_bwd),
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            **bound(dtype, (3 * big + 2 * small) * elt + rows + B * H * S * 4,
+                    6 * H * D * pairs)),
         "flash_attention_bwd_dkv": dict(
             max_abs_err=c["err_dkv"], ms=time_ms(lambda: fl._dkv_kernel(*c["bwd"]), n=10),
-            plain_ms=plain_bwd),
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            **bound(dtype, (2 * big + 4 * small) * elt + rows + B * H * S * 4,
+                    8 * H * D * pairs)),
     }
+
+
+def time_sampler(gen) -> dict:
+    """One plain decode step's sampling at full width, (8, 128256) float32
+    logits: the host key split and the threefry categorical, against the
+    greedy argmax."""
+    logits = torch.randn(8, 128256, generator=gen, device="cuda")
+    key = prng.prng_key(0)
+
+    def sample():
+        _, sub = prng.split(key)
+        return prng.categorical(sub, logits)
+
+    return dict(threefry_ms=time_ms(sample), argmax_ms=time_ms(lambda: logits.argmax(dim=-1)))
 
 
 # ----------------------------------------------------------------------
@@ -337,23 +460,53 @@ def small_f32_models():
 
 
 def check_f32_card_vs_cpu() -> None:
+    """The engine on the card against the CPU, same weights, float32: plain
+    greedy; speculative greedy (k = 2, 4) equal to plain greedy; speculative
+    sampling (k = 2, 4, temperature 0.7) equal across k and devices; a forked
+    group (sampled), a 100-token prompt over buckets of 32/64 (chunked) and
+    staggered admission."""
     cpu_model, gpu_model = small_f32_models()
-    ecfg = EngineConfig(max_slots=4, max_seq_len=128, prefill_buckets=(32, 64),
-                        page_size=16, decode_chunk=8, do_sample=False, max_new_tokens=12)
+    base = dict(max_slots=4, max_seq_len=128, prefill_buckets=(32, 64), page_size=16,
+                decode_chunk=8, do_sample=False, max_new_tokens=12)
+    sampled = dict(do_sample=True, temperature=0.7, seed=3)
     rng = np.random.default_rng(1)
     batches = [make_request(rng, 1024, 30, image_size=32, patch=8, image_at=4),
                make_request(rng, 1024, 20), make_request(rng, 1024, 50)]
-    reset_launch_counts()
-    on_card = ServingEngine(gpu_model, ecfg).generate(batches)
-    counts = launch_counts()
-    on_cpu = ServingEngine(cpu_model, ecfg).generate(batches)
-    log(f"  card tokens: {on_card}")
-    log(f"  cpu tokens:  {on_cpu}")
+    long_prompt = make_request(rng, 1024, 100, image_size=32, patch=8, image_at=70)
+
+    def both(name, generate, **kw):
+        """Tokens on the card and on the CPU, which must agree; the card's
+        kernel launches."""
+        reset_launch_counts()
+        on_card = generate(ServingEngine(gpu_model, EngineConfig(**{**base, **kw})))
+        counts = launch_counts(tuple(KERNELS))
+        on_cpu = generate(ServingEngine(cpu_model, EngineConfig(**{**base, **kw})))
+        log(f"  {name}: card {on_card}")
+        if on_card != on_cpu:
+            log(f"  {name}: cpu  {on_cpu}")
+            raise AssertionError(f"f32 engine on the card disagrees with the CPU: {name}")
+        return on_card, counts
+
+    plain, counts = both("greedy", lambda e: e.generate(batches))
     log(f"  launches: {counts}")
-    if on_card != on_cpu:
-        raise AssertionError("f32 engine on the card disagrees with the CPU")
-    if not all(counts.values()):
+    if not all(counts[n] for n in SERVING):
         raise AssertionError(f"a kernel was not launched by the f32 engine: {counts}")
+    spec_sampled = []
+    for k in (2, 4):
+        spec, counts = both(f"speculative k={k} greedy", lambda e: e.generate(batches),
+                            speculative_k=k)
+        if spec != plain:
+            raise AssertionError(f"speculative greedy (k={k}) differs from plain greedy")
+        if not all(counts[n] for n in SPEC_SERVING) or counts["ring_decode_attention"]:
+            raise AssertionError(f"speculative engine launches: {counts}")
+        spec_sampled.append(both(f"speculative k={k} sampled", lambda e: e.generate(batches),
+                                 speculative_k=k, **sampled)[0])
+    if spec_sampled[0] != spec_sampled[1]:
+        raise AssertionError("speculative sampling depends on k")
+    both("forked group of 3, sampled",
+         lambda e: e.generate([batches[0]] * 3, group_size=3), **sampled)
+    both("chunked 100-token prompt", lambda e: e.generate([long_prompt] + batches[1:]))
+    both("staggered admission", lambda e: e.generate(batches + batches), prefill_group_cap=1)
 
 
 def full_width_model() -> MultimodalModel:
@@ -447,6 +600,79 @@ def run_full_width(model: MultimodalModel) -> dict:
     log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s "
         f"over {work['decode_steps']} steps, peak memory "
         f"{out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
+    return out
+
+
+def run_spec_full_width(model: MultimodalModel) -> dict:
+    """Speculative serving at full width (the JAX bench's speculative leg,
+    k = 4, paged, greedy, scaled to 8 slots): 3 requests of 512 tokens, a
+    forked group of 4 over one 512-token prompt and a 1,000-token prompt
+    (two chunks), each with one image and 64 new tokens."""
+    engine = ServingEngine(model, EngineConfig(
+        max_slots=8, max_seq_len=1152, prefill_buckets=(512,), page_size=128,
+        decode_chunk=8, speculative_k=4, do_sample=False))
+    vocab = model.config.llm.vocab_size
+    rng = np.random.default_rng(4)
+
+    def request(n):
+        return make_request(rng, vocab, n, image_size=224, patch=14)
+
+    # warm-up round (allocator, cuBLAS handles at the verify shapes); not measured
+    engine.generate([request(512)], max_new_tokens=4)
+
+    batches = [request(512) for _ in range(3)]
+    group_prompt, long_prompt = request(512), request(1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    engine.n_prefill_calls = engine.spec_verify_steps = 0
+    engine.spec_slot_steps = engine.spec_emitted = 0
+    t0 = time.time()
+    reqs = [engine.submit(b, max_new_tokens=64) for b in batches]
+    reqs += engine.submit_group(group_prompt, 4, max_new_tokens=64)
+    reqs.append(engine.submit(long_prompt, max_new_tokens=64))
+    engine.step()  # admits all eight: the group's prompt pages are shared 4 ways
+    shared = int(engine.page_ref.max())
+    engine.run()
+    wall = time.time() - t0
+    counts = launch_counts(SPEC_SERVING)
+    work = dict(prefill_calls=engine.n_prefill_calls, verify_steps=engine.spec_verify_steps,
+                slot_steps=engine.spec_slot_steps, emitted=engine.spec_emitted)
+    log(f"  launches: {counts}; work: {work}; page_ref max after admission {shared}")
+
+    for r in reqs:
+        if r.finish_reason is None or not 1 <= len(r.tokens) <= 64:
+            raise AssertionError(f"request {r.request_id}: {r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
+        if not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"request {r.request_id}: token outside the vocab")
+    if shared != 4:
+        raise AssertionError(f"the group's prompt pages were held {shared} times, not 4")
+    if counts["ring_verify_attention"] < 32 * work["verify_steps"]:
+        raise AssertionError("K6 launched fewer than 32 times per verify step")
+    if counts["fold_ring_into_pages"] < work["verify_steps"]:
+        raise AssertionError("K5 launched fewer times than there were verify steps")
+    if counts["encoder_attention"] < 24 * work["prefill_calls"]:
+        raise AssertionError("K3 launched fewer than 24 times per prefill call")
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+
+    ttfts = sorted(r.ttft for r in reqs)
+    first = max(r.first_token_time for r in reqs)
+    last = max(r.finish_time for r in reqs)
+    decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
+    out = dict(
+        ttft_p50_ms=statistics.median(ttfts) * 1000,
+        ttft_max_ms=ttfts[-1] * 1000,
+        decode_tok_per_s=decode_tokens / (last - first),
+        accepted_per_slot_step=work["emitted"] / max(work["slot_steps"], 1),
+        wall_s=wall,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tokens=sum(len(r.tokens) for r in reqs),
+        launches=counts, **work)
+    log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s "
+        f"over {work['verify_steps']} verify steps, {out['accepted_per_slot_step']:.3f} tokens "
+        f"per slot-step, peak memory {out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
     return out
 
 
@@ -632,18 +858,25 @@ def main() -> int:
     results = {}
     for names, check in ((("encoder_attention",), check_encoder_attention),
                          (("ring_decode_attention",), check_ring_decode),
+                         (("ring_verify_attention",), check_ring_verify),
                          (("fold_ring_into_pages",), check_fold),
                          (TRAINING, check_flash)):
         for dtype in (torch.float32, torch.bfloat16):
             res = check(dtype, gen)
             res = res if len(names) > 1 else {names[0]: res}
             for name in names:
-                log(f"  {name} {str(dtype)[6:]}: kernel {res[name]['ms']:.4f} ms, "
-                    f"plain {res[name]['plain_ms']:.4f} ms")
+                r = res[name]
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+                log(f"  {name} {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, "
+                    f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}), library call {lib}")
         results.update(res)  # the bf16 numbers, the full-width paths' dtype
+    sampler = time_sampler(gen)
+    log(f"  sampling (8, 128256) f32: threefry categorical {sampler['threefry_ms']:.4f} ms, "
+        f"argmax {sampler['argmax_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
-    log("[4] f32 engine: card vs CPU, greedy")
+    log("[4] f32 engine: card vs CPU (greedy, speculative, forked, chunked, staggered)")
     check_f32_card_vs_cpu()
 
     log("[5] full width: Llama-3.1-8B widths + CLIP ViT-L/14, bf16, 8 requests")
@@ -661,14 +894,23 @@ def main() -> int:
 
     log("[7] full width ALIGNMENT: batch 4 x 4096, 16 images, remat, bf16")
     trained = run_train_full_width(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[8] full width speculative serving: k = 4, greedy, 8 slots, forked group, "
+        "chunked prompt")
+    spec = run_spec_full_width(model)
 
     # each kernel's launches in the full-width run of its path
-    launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING}}
+    launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
+                "ring_verify_attention": spec["launches"]["ring_verify_attention"]}
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
-    print(json.dumps({"full_width": {k: v for k, v in full.items() if k != "launches"}}))
+    print(json.dumps({"full_width": {**{k: v for k, v in full.items() if k != "launches"},
+                                     "sampler_ms": sampler}}))
     print(json.dumps({"train_full_width": trained}))
+    print(json.dumps({"spec_full_width": spec}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

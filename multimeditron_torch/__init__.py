@@ -10,16 +10,36 @@ Each kernel wrapper has a plain PyTorch twin in the same module. A CPU
 tensor goes to the twin; a CUDA tensor goes to the kernel or the wrapper
 raises. Nothing falls back.
 
+Modules build on the card unless the caller passes ``device="cpu"``
+(:func:`default_device`).
+
 Ported so far: the paged serving path — CLIP/SigLIP ViT tower, MLP
 projector, multimodal splice, Llama decoder (no cache, contiguous prefill
-cache, paged ring decode) and the paged continuous-batching engine — and
-the SFT training path: the training forward with per-layer remat and the
-flash attention kernels, the loss, staged freezing and the masked AdamW
-trainer with checkpoints and a data loader.
+cache, paged ring decode and speculative verify) and the paged
+continuous-batching engine with speculative decoding, forked groups,
+chunked prefill and staggered admission — and the SFT training path: the
+training forward with per-layer remat and the flash attention kernels, the
+loss, staged freezing and the masked AdamW trainer with checkpoints and a
+data loader.
 
-This package imports ``torch`` and ``numpy``; from the JAX package only the
-framework-free ``multimeditron_tpu.constants`` and
-``multimeditron_tpu.registry``.
+This package imports ``torch`` and ``numpy``, and nothing of the JAX
+package: the framework-free modules it needs from there
+(``constants.py``, ``registry.py``, ``utils/jsonl.py``) are copied.
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` when given, else the card (``torch.device("cuda")``).
+
+    With no device and no CUDA device this raises: the CPU is reached only
+    by asking for it, never by falling back.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available: pass device="cpu" to build on the CPU')
+    return torch.device("cuda")

@@ -46,6 +46,14 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _P),
     "mmt_ring_decode_split_keys": (),
+    # q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
+    # partial (float32 scratch), o, B, H, Hkv, S, D, n_pages, P, pm, T,
+    # layer_index, scale, n_splits, dtype, stream
+    "mmt_ring_verify_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _P),
+    "mmt_ring_verify_split_keys": (),
+    "mmt_ring_verify_max_rows": (),
     # k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
     # L, B, Hkv, D, n_pages, P, pm, T, rows, dtype, stream
     "mmt_fold_ring_into_pages": (_P, _P, _P, _P, _P, _P, _P,

@@ -28,8 +28,8 @@
 // shuffle reduction per head); one warp per head keeps an online softmax in
 // float; each thread accumulates its output columns for every head. The
 // block writes its partial (max, sum, accumulator) to a float32 scratch
-// buffer, and a second kernel, one block per (kv head, slot), merges the
-// splits and normalises. Keys past the valid range are never visited, so
+// buffer, and a second kernel (split_merge.cuh), one block per (kv head,
+// slot), merges the splits and normalises. Keys past the valid range are never visited, so
 // stale or uninitialised pool pages cannot poison a row (the Pallas kernel
 // had to zero them because 0 * NaN = NaN). Every page index read from the
 // table is clamped into the pool, and the valid counts are clamped to the
@@ -40,6 +40,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -220,33 +221,6 @@ ring_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// Merge the splits of one (kv head, slot): o = sum_s e^(m_s - M) acc_s / L.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ring_decode_combine_kernel(const float* __restrict__ partial, T* __restrict__ o, int H,
-                           int Hkv, int D, int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int group = H / Hkv;
-  const size_t stride = size_t(group) * (D + 2);
-  const float* base = partial + (size_t(b) * Hkv + h) * n_splits * stride;
-  const size_t o0 = (size_t(b) * H + size_t(h) * group) * D;
-  for (int i = threadIdx.x; i < group * D; i += kThreads) {
-    const int g = i / D;
-    float m = -INFINITY;
-    for (int s = 0; s < n_splits; ++s) m = fmaxf(m, base[s * stride + g]);
-    float l = 0.f, a = 0.f;
-    if (m > -INFINITY) {
-      for (int s = 0; s < n_splits; ++s) {
-        const float* part = base + s * stride;
-        const float w = expf(part[g] - m);  // 0 for an empty split (max -inf)
-        l = fmaf(part[group + g], w, l);
-        a = fmaf(part[2 * group + i], w, a);
-      }
-    }
-    o[o0 + i] = mmt::from_float<T>(l > 0.f ? a / l : 0.f);
-  }
-}
-
 template <typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_ring,
            const void* v_ring, const void* page_table, const void* pages_len,
@@ -266,8 +240,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
       static_cast<float*>(partial), B, H, Hkv, D, n_pages, P, pm, T_ring, layer, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ring_decode_combine_kernel<T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<T*>(o), H, Hkv, D, n_splits);
+  mmt::split_merge_kernel<T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<T*>(o), Hkv, H / Hkv, D, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from multimeditron_tpu.registry import Registry
+from multimeditron_torch.registry import Registry
 
 
 @dataclasses.dataclass

@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from multimeditron_torch import default_device
 from multimeditron_torch.modalities.base import AutoModality, BaseModality, BaseModalityConfig
 from multimeditron_torch.models.projector import MLPProjector
 from multimeditron_torch.models.vit import ViT, ViTConfig
@@ -60,7 +61,9 @@ class ImageModality(BaseModality):
     config_class = ImageConfig
 
     def __init__(self, config: ImageConfig, device=None):
+        """Built on ``device`` (default: the card)."""
         super().__init__(config)
+        device = default_device(device)
         self.vit_cfg = config.vit_config()
         self.embedder = ViT(self.vit_cfg, device=device)
         self.projector = MLPProjector(self.vit_cfg.hidden_size, config.hidden_size,

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimeditron_tpu.constants import IGNORE_TOKEN_INDEX
+from multimeditron_torch.constants import IGNORE_TOKEN_INDEX
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -3,14 +3,14 @@
 Counterpart of ``multimeditron_tpu/models/llama.py`` for the serving and
 training paths: the decoder without a cache (optionally rematerialised per
 layer for training), with a contiguous cache in prefill mode (the
-serving engine's local prefill cache), and the paged single-token decode
-step against a page pool + per-chunk ring (kernel K4). Supports GQA, RoPE
-with HF llama3 scaling and 2-D position ids, optional QK-norm, gated and
-plain MLPs (activation in float32) and tied embeddings.
+serving engine's local prefill cache and chunked-prefill slab), and the paged
+steps against a page pool + per-chunk ring: a single-token decode step
+(kernel K4) and the speculative verify block of S > 1 tokens (kernel K6).
+Supports GQA, RoPE with HF llama3 scaling and 2-D position ids, optional
+QK-norm, gated and plain MLPs (activation in float32) and tied embeddings.
 
 Not ported yet, and refused with ``NotImplementedError``: sequence, ring and
-pipeline parallelism, W8A8/W8A16 weights, the speculative verify block
-(S > 1 against a paged cache) and contiguous-cache decode.
+pipeline parallelism, W8A8/W8A16 weights and contiguous-cache decode.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from multimeditron_torch import default_device
 from multimeditron_torch.models.common import (
     RMSNorm,
     apply_rope,
@@ -32,7 +33,7 @@ from multimeditron_torch.models.common import (
     xielu,
 )
 from multimeditron_torch.ops.attention import attention
-from multimeditron_torch.ops.paged_attention import ring_decode_attention
+from multimeditron_torch.ops.paged_attention import ring_decode_attention, ring_verify_attention
 
 Cache = Dict[str, torch.Tensor]
 
@@ -183,22 +184,26 @@ class LlamaLayer(nn.Module):
             self.xielu_alpha_p = nn.Parameter(torch.empty(1, **f32))
             self.xielu_alpha_n = nn.Parameter(torch.empty(1, **f32))
 
-    def _paged_decode(self, q, k, v, cache: Cache, layer_index: int) -> torch.Tensor:
-        # Pages are read-only within a decode chunk: this step's K/V row goes
-        # into ring row t (the in-chunk step index, uniform over the slots
-        # still active), then K4 attends over pages + ring. The engine folds
-        # the ring into the pages between chunks.
+    def _paged_step(self, q, k, v, cache: Cache, layer_index: int) -> torch.Tensor:
+        # Pages are read-only within a decode chunk: this step's S K/V rows go
+        # into ring rows [t, t + S) (t the in-chunk step index, uniform over
+        # the slots still active), then K4 (S = 1) or K6 (the speculative
+        # verify block, S = k + 1) attends over pages + ring. The engine folds
+        # the ring into the pages between chunks, and after every verify step,
+        # so a verify block always lands at t = 0.
         pages_len, lengths = cache["pages_length"], cache["length"]
         rk, rv = cache["ring_k"], cache["ring_v"]
-        T = rk.shape[3]
+        T, S = rk.shape[3], q.shape[2]
         # clamped like the start index of the JAX dynamic_update_slice
-        t = (lengths - pages_len).max().clamp(0, T - 1).long().view(1)
-        rk[layer_index].index_copy_(2, t, k.to(rk.dtype))
-        rv[layer_index].index_copy_(2, t, v.to(rv.dtype))
-        out = ring_decode_attention(
-            q[:, :, 0, :].contiguous(), cache["k"], cache["v"], rk, rv,
-            cache["page_table"], pages_len, lengths, layer_index)
-        return out[:, :, None, :]
+        t = (lengths - pages_len).max().clamp(0, T - S).long()
+        rows = t + torch.arange(S, device=t.device)
+        rk[layer_index].index_copy_(2, rows, k.to(rk.dtype))
+        rv[layer_index].index_copy_(2, rows, v.to(rv.dtype))
+        args = (cache["k"], cache["v"], rk, rv, cache["page_table"], pages_len, lengths,
+                layer_index)
+        if S == 1:
+            return ring_decode_attention(q[:, :, 0, :].contiguous(), *args)[:, :, None, :]
+        return ring_verify_attention(q.contiguous(), *args)
 
     def _prefill_into_cache(self, q, k, v, cache: Cache, layer_index: int) -> torch.Tensor:
         # Write this call's K/V at each sample's current length, then attend
@@ -237,11 +242,7 @@ class LlamaLayer(nn.Module):
         if cache is None:
             out = attention(q, k, v, kv_mask=attention_mask, causal=True)
         elif "page_table" in cache:
-            if S != 1:
-                raise NotImplementedError(
-                    "multi-token steps against a paged cache (speculative "
-                    "verify, kernel K6) are not ported yet")
-            out = self._paged_decode(q, k, v, cache, layer_index)
+            out = self._paged_step(q, k, v, cache, layer_index)
         elif prefill:
             out = self._prefill_into_cache(q, k, v, cache, layer_index)
         else:
@@ -262,11 +263,13 @@ class LlamaLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    """The decoder; ``forward`` is the JAX ``llama_forward``."""
+    """The decoder; ``forward`` is the JAX ``llama_forward``. Built on
+    ``device`` (default: the card)."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None):
         super().__init__()
         _refuse_unported(cfg)
+        device = default_device(device)
         kw = dict(device=device, dtype=cfg.dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)

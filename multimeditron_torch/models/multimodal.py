@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from multimeditron_torch import default_device
 from multimeditron_torch.modalities import AutoModality
 from multimeditron_torch.modalities.base import BaseModalityConfig
 from multimeditron_torch.models.common import cross_entropy_loss
@@ -85,10 +86,11 @@ class MultimodalConfig:
 
 
 class MultimodalModel(nn.Module):
-    """LLM + modality encoders, built on ``device``."""
+    """LLM + modality encoders, built on ``device`` (default: the card)."""
 
     def __init__(self, config: MultimodalConfig, *, device=None):
         super().__init__()
+        device = default_device(device)
         if config.vocab_size is not None and config.vocab_size != config.llm.vocab_size:
             config.llm = dataclasses.replace(config.llm, vocab_size=config.vocab_size)
         self.config = config

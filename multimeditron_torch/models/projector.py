@@ -10,15 +10,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from multimeditron_torch import default_device
 from multimeditron_torch.models.common import gelu, init_linear_
 
 
 class MLPProjector(nn.Module):
-    """``forward`` is the JAX ``mlp_projector_forward``."""
+    """``forward`` is the JAX ``mlp_projector_forward``. Built on ``device``
+    (default: the card)."""
 
     def __init__(self, modality_size: int, projected_size: int, *,
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
+        device = default_device(device)
         kw = dict(device=device, dtype=dtype)
         self.fc1 = nn.Linear(modality_size, modality_size, **kw)
         self.fc2 = nn.Linear(modality_size, projected_size, **kw)

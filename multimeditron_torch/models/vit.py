@@ -13,6 +13,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from multimeditron_torch import default_device
 from multimeditron_torch.models.common import LayerNorm, init_dense_, init_linear_
 from multimeditron_torch.ops.encoder_attention import encoder_attention
 
@@ -118,10 +119,12 @@ class ViTLayer(nn.Module):
 
 
 class ViT(nn.Module):
-    """The tower; ``forward`` is the JAX ``vit_forward``."""
+    """The tower; ``forward`` is the JAX ``vit_forward``. Built on ``device``
+    (default: the card)."""
 
     def __init__(self, cfg: ViTConfig, *, device=None):
         super().__init__()
+        device = default_device(device)
         D, P = cfg.hidden_size, cfg.patch_size
         kw = dict(device=device, dtype=cfg.dtype)
         self.cfg = cfg

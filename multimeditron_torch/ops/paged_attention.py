@@ -1,4 +1,5 @@
-"""Paged + ring decode attention and the ring fold (kernels K4 and K5).
+"""Paged + ring decode and verify attention and the ring fold (kernels K4,
+K6 and K5).
 
 Counterpart of ``multimeditron_tpu/ops/paged_attention.py``. The serving
 engine splits the decode KV cache in two:
@@ -11,9 +12,11 @@ engine splits the decode KV cache in two:
   chunk: step t writes row t.
 
 ``ring_decode_attention`` computes one step's attention over [pages, ring]
-per slot; at the end of the chunk ``fold_ring_into_pages`` moves the ring
-rows into the pages, in place. On a CUDA tensor each runs its kernel
-(``csrc/ring_decode.cu``, ``csrc/fold_ring.cu``); on a CPU tensor its plain
+per slot; ``ring_verify_attention`` does the same for a speculative block
+of S query rows, causal within the block; ``fold_ring_into_pages`` moves the
+ring rows into the pages, in place, at the end of a chunk (after every
+verify step). On a CUDA tensor each runs its kernel (``csrc/ring_decode.cu``,
+``csrc/ring_verify.cu``, ``csrc/fold_ring.cu``); on a CPU tensor its plain
 twin (``*_plain``, the JAX ``*_xla`` references).
 """
 
@@ -26,7 +29,8 @@ import torch
 from multimeditron_torch import _build
 
 # Launches of the CUDA kernels (the plain twins do not count).
-launches = {"ring_decode_attention": 0, "fold_ring_into_pages": 0}
+launches = {"ring_decode_attention": 0, "ring_verify_attention": 0,
+            "fold_ring_into_pages": 0}
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -157,6 +161,115 @@ def ring_decode_attention(
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     _build.check("ring_decode_attention", code)
     launches["ring_decode_attention"] += 1
+    return o
+
+
+# ======================================================================
+# K6: ring verify attention (the speculative verify block)
+# ======================================================================
+def ring_verify_attention_plain(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    k_ring: torch.Tensor, v_ring: torch.Tensor, page_table: torch.Tensor,
+    pages_len: torch.Tensor, lengths: torch.Tensor, layer_index: int,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather-based twin (the JAX ``ring_verify_attention_xla``).
+
+    Query i of slot b sits at position lengths[b] + i: it sees page
+    positions < pages_len[b] and ring rows r <= lengths[b] - pages_len[b] + i.
+    GQA folds the group into the query; K and V are not repeated.
+    """
+    B, H, S, D = q.shape
+    _, Hkv, _, P, _ = k_pages.shape
+    pm = page_table.shape[1]
+    T = k_ring.shape[3]
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    table = page_table.long()
+    k = k_pages[layer_index][:, table].transpose(0, 1).reshape(B, Hkv, pm * P, D)
+    v = v_pages[layer_index][:, table].transpose(0, 1).reshape(B, Hkv, pm * P, D)
+    k = torch.cat([k, k_ring[layer_index].to(k.dtype)], dim=2)
+    v = torch.cat([v, v_ring[layer_index].to(v.dtype)], dim=2)
+
+    dev = q.device
+    qi = torch.arange(S, device=dev)[None, :, None]                       # (1, S, 1)
+    page_mask = (torch.arange(pm * P, device=dev)[None, None, :]
+                 < pages_len[:, None, None]).expand(B, S, pm * P)
+    ring_mask = (torch.arange(T, device=dev)[None, None, :]
+                 <= (lengths - pages_len)[:, None, None] + qi)
+    mask = torch.cat([page_mask, ring_mask], dim=2)[:, None, None]       # (B,1,1,S,N)
+
+    group = H // Hkv
+    qg = q.reshape(B, Hkv, group, S, D).float()
+    s = torch.einsum("bigsd,bind->bigsn", qg, k.float())
+    s = torch.where(mask, s * sm_scale, MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bigsn,bind->bigsd", p.to(v.dtype).float(), v.float())
+    out = out / torch.clamp(l, min=1e-30)
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def ring_verify_attention(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    k_ring: torch.Tensor, v_ring: torch.Tensor, page_table: torch.Tensor,
+    pages_len: torch.Tensor, lengths: torch.Tensor, layer_index: int,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The speculative verify block: S query rows per head and slot over
+    [pages < pages_len, ring rows <= lengths - pages_len + i] of layer
+    ``layer_index``. q: (B, H, S, D) -> (B, H, S, D).
+
+    ``lengths`` counts the tokens before the block; the block's own K/V
+    already sit at ring rows lengths - pages_len .. + S - 1. The engine folds
+    the ring after every verify step, so it calls with lengths == pages_len;
+    other offsets are taken as well.
+    """
+    _check_pool(k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths)
+    L, Hkv, n_pages, P, D = k_pages.shape
+    B, pm = page_table.shape
+    T = k_ring.shape[3]
+    if q.dim() != 4 or q.shape[0] != B or q.shape[3] != D or q.shape[1] % Hkv:
+        raise ValueError(f"q must be (B={B}, H, S, D={D}) with H % {Hkv} == 0, "
+                         f"got {tuple(q.shape)}")
+    if q.dtype != k_pages.dtype or q.device != k_pages.device:
+        raise ValueError("q must match the pool's dtype and device")
+    if not 0 <= layer_index < L:
+        raise ValueError(f"layer_index {layer_index} outside [0, {L})")
+    H, S = q.shape[1], q.shape[2]
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+
+    if q.device.type == "cpu":
+        return ring_verify_attention_plain(
+            q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
+            layer_index, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_verify_attention runs on cpu or cuda, not {q.device}")
+    lib = _build.library()
+    rows = H // Hkv * S
+    if rows > lib.mmt_ring_verify_max_rows() or D % 2:
+        raise ValueError(f"the kernel takes an even head dim and at most "
+                         f"{lib.mmt_ring_verify_max_rows()} query rows per kv head, "
+                         f"got D={D}, {rows} rows")
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, k_ring, v_ring)):
+        raise ValueError("q, pool and ring must be contiguous")
+    _check_cuda_ints(page_table, pages_len, lengths)
+
+    # splits of each slot's keys, merged through float32 scratch as in K4
+    n_splits = -(-(pm * P + T) // lib.mmt_ring_verify_split_keys())
+    partial = torch.empty((B, Hkv, n_splits, rows, D + 2), dtype=torch.float32,
+                          device=q.device)
+    o = torch.empty_like(q)
+    code = lib.mmt_ring_verify_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_ring.data_ptr(),
+        v_ring.data_ptr(), page_table.data_ptr(), pages_len.data_ptr(),
+        lengths.data_ptr(), partial.data_ptr(), o.data_ptr(),
+        B, H, Hkv, S, D, n_pages, P, pm, T, int(layer_index), float(sm_scale), n_splits,
+        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+    _build.check("ring_verify_attention", code)
+    launches["ring_verify_attention"] += 1
     return o
 
 

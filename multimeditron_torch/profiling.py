@@ -15,6 +15,8 @@ from typing import Dict, Optional
 
 import torch
 
+from multimeditron_torch import default_device
+
 # Dense bf16 peak FLOP/s of one device, for MFU (NVIDIA's data sheets, SXM
 # parts at their full power limit). The CPU value is nominal: an MFU computed
 # on the CPU only shows that the meter runs.
@@ -26,8 +28,9 @@ PEAK_FLOPS = {
 
 
 def device_peak_flops(device: Optional[torch.device] = None) -> float:
-    """Peak bf16 FLOP/s of ``device``, keyed on ``torch.cuda.get_device_name``."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    """Peak bf16 FLOP/s of ``device`` (default: the card), keyed on
+    ``torch.cuda.get_device_name``."""
+    device = default_device(device)
     if device.type != "cuda":
         return PEAK_FLOPS["cpu"]
     name = torch.cuda.get_device_name(device).lower()
@@ -85,7 +88,8 @@ class ThroughputMeter:
                 num_params_trainable = num_params
             flops_per_token = 4.0 * num_params + 2.0 * num_params_trainable
         self.flops_per_token = flops_per_token
-        self.peak = device_peak_flops(device)  # one process drives one device
+        # one process drives one device; None is the card
+        self.peak = device_peak_flops(device)
         self.reset()
 
     def reset(self):

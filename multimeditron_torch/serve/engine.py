@@ -1,29 +1,44 @@
-"""Continuous-batching serving engine: the paged, plain-decode subset.
+"""Continuous-batching serving engine, paged KV mode.
 
 Counterpart of ``multimeditron_tpu/serve/engine.py`` with ``kv_mode="paged"``:
 
 - a fixed pool of SLOTS and a global pool of KV PAGES, with per-slot page
   tables; page 0 is the trash page. Requests reserve pages for prompt +
-  decode budget at admission and queue (FIFO) while the pool is exhausted;
+  decode budget at admission and queue (FIFO) while the pool is exhausted.
+  Pages are refcounted: a forked group shares its prompt's full pages;
 - batched PREFILL of same-signature requests (bucketed prompt length +
-  modality shapes, group size capped to a power of two): modality encode and
+  modality shapes, group size capped to a power of two, or to
+  ``prefill_group_cap`` when admission is staggered): modality encode and
   splice, a causal forward into a local contiguous cache, then one scatter of
-  bucket-shaped pages into the pool;
+  bucket-shaped pages into the pool. Prompts longer than the largest bucket
+  prefill in bucket-sized chunks into a persistent slab, folded into the pool
+  once;
+- FORKED GROUPS (``submit_group(n > 1)``, the GRPO G-per-prompt layout): the
+  prompt prefills once; siblings share its full pages, copy its partial tail
+  page and sample their first tokens from its last logits;
 - chunked DECODE: ``decode_chunk`` single-token steps write into a per-chunk
   ring and attend over pages + ring (kernel K4); slots deactivate in the
   chunk on EOS, exhausted budget or a full cache; at the end of the chunk the
   ring folds into the pages (kernel K5);
-- per-slot temperature / top-k / top-p sampling on the device.
+- SPECULATIVE decoding (``speculative_k = k > 0``): each step drafts k tokens
+  per slot from its token history (n-gram prompt lookup), runs the (k+1)-token
+  block through the decoder (kernel K6), commits the longest agreeing prefix
+  plus one bonus token and folds the ring (K5). Greedy output is exactly the
+  plain greedy decode; sampled output is position-keyed, so a function of
+  (prompt, seed) independent of k;
+- per-slot temperature / top-k / top-p sampling on the device, with JAX's
+  threefry keys (``serve/prng.py``): every sampled token equals the JAX
+  engine's for the same logits.
 
 Scheduling state lives on the engine's device (the model's device); the host
 keeps mirrors for admission, page allocation and finish bookkeeping, and
-downloads one token matrix per chunk. Each live decode step costs one host
-sync (``active.any()``), where the JAX loop skips dead steps in-graph.
+downloads one token matrix per chunk. Each live decode or verify step costs
+one host sync (``active.any()``), where the JAX loop skips dead steps
+in-graph.
 
-Not ported yet (``NotImplementedError``): ``kv_mode="slab"``, speculative
-decoding, tensor parallelism or an external mesh, the int8 LLM and W8A8
-prefill, staggered admission, forked groups and chunked prefill of prompts
-longer than the largest bucket.
+Not ported yet (``NotImplementedError``): ``kv_mode="slab"``, tensor
+parallelism or an external mesh, the int8 LLM and W8A8 prefill, and
+``attn_impl``.
 """
 
 from __future__ import annotations
@@ -38,6 +53,9 @@ import torch
 from multimeditron_torch.models.llama import init_kv_cache, init_paged_kv_cache
 from multimeditron_torch.models.multimodal import MultimodalModel
 from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
+from multimeditron_torch.serve import prng
+
+CACHE_KEYS = ("k", "v", "ring_k", "ring_v", "length", "page_table", "pages_length")
 
 
 @dataclasses.dataclass
@@ -80,6 +98,9 @@ class Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[str] = None  # "eos" | "budget" | "capacity"
+    # siblings sharing this request's prompt KV pages (forked group);
+    # populated by ``submit_group`` on the primary only
+    forks: List["Request"] = dataclasses.field(default_factory=list)
 
     @property
     def ttft(self) -> Optional[float]:
@@ -91,17 +112,20 @@ class Request:
 def _refuse_unported(cfg: EngineConfig, mesh) -> None:
     refused = [
         (cfg.kv_mode != "paged", f"kv_mode={cfg.kv_mode!r} (slab engine)"),
-        (cfg.speculative_k > 0, "speculative_k > 0 (speculative decoding, kernel K6)"),
         (cfg.tp > 1 or mesh is not None, "tp > 1 or an external mesh (parallelism)"),
         (cfg.quantize_llm, "quantize_llm (quantized paths)"),
         (cfg.w8a8_prefill, "w8a8_prefill (quantized paths)"),
-        (cfg.prefill_group_cap is not None, "prefill_group_cap (staggered admission)"),
         (cfg.attn_impl is not None, "attn_impl (the port picks kernels by device)"),
     ]
     for bad, what in refused:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP queue 1, serve/engine.py)")
+
+
+def _wrap_int32(x: int) -> int:
+    """``x`` as the JAX engine's int32 state holds it (two's complement)."""
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
 class ServingEngine:
@@ -114,18 +138,23 @@ class ServingEngine:
         llm = model.config.llm
         self.eos_id = model.config.eos_token_idx
         self.decode_chunk = max(1, cfg.decode_chunk)
+        self.spec_k = max(0, cfg.speculative_k)
         P = cfg.page_size
         for b in cfg.prefill_buckets:
             if b >= P and b % P != 0:
                 raise ValueError(f"prefill bucket {b} must divide into pages of {P}")
-        if self.decode_chunk > P:
-            raise ValueError(f"ring ({self.decode_chunk} rows) must fit one page ({P})")
+        # a verify step writes one (k+1)-token block into the ring, folded
+        # after every step; plain decode keeps a chunk's rows
+        ring_size = max(self.decode_chunk, self.spec_k + 2) if self.spec_k else self.decode_chunk
+        if ring_size > P:
+            raise ValueError(f"ring ({ring_size} rows) must fit one page ({P})")
         self.page_size = P
         self.pages_max = -(-cfg.max_seq_len // P)
         n_pages = cfg.num_pages or (1 + cfg.max_slots * self.pages_max)
         self.num_pages = n_pages
 
-        # Host-side allocator; page 0 = trash (never allocated).
+        # Host-side allocator; page 0 = trash (never allocated). Pages are
+        # refcounted: a forked group's slots share its full prompt pages.
         self.page_table = np.zeros((cfg.max_slots, self.pages_max), np.int32)
         self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
         self.page_ref = np.zeros((n_pages,), np.int32)
@@ -141,25 +170,40 @@ class ServingEngine:
         dev, B = self.device, cfg.max_slots
         with torch.inference_mode():
             cache = init_paged_kv_cache(llm, n_pages, P, self.pages_max, B,
-                                        ring_size=self.decode_chunk, device=dev)
+                                        ring_size=ring_size, device=dev)
             ints = dict(dtype=torch.int32, device=dev)
             # Device-resident scheduling state, updated in place by prefill
             # and decode; "remaining" is the token budget left per slot.
-            self.state: Dict[str, torch.Tensor] = {
+            # "seed" seeds the next plain decode chunk's keys (a host int:
+            # keys are derived on the host, random bits on the device).
+            self.state: Dict[str, Any] = {
                 **cache,
                 "tokens": torch.zeros((B,), **ints),
                 "active": torch.zeros((B,), dtype=torch.bool, device=dev),
                 "remaining": torch.zeros((B,), **ints),
                 "temps": torch.full((B,), cfg.temperature, dtype=torch.float32, device=dev),
                 "top_ps": torch.full((B,), cfg.top_p, dtype=torch.float32, device=dev),
+                "seed": _wrap_int32(cfg.seed),
             }
-        self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+            if self.spec_k:
+                # committed tokens (prompt + generated) backing the n-gram
+                # draft; the k+2 margin takes the verify block's writes
+                self.state["history"] = torch.zeros(
+                    (B, cfg.max_seq_len + self.spec_k + 2), **ints)
         self.queue: List[Request] = []
         self._next_id = 0
-        # work counters: prefill calls, live decode steps, decode chunks
+        self._seed_ctr = 0  # prefill and fork seeds, as the JAX _next_seed
+        self._last_prefill_logits: Optional[torch.Tensor] = None
+        self._chunk_slab: Optional[Dict[str, torch.Tensor]] = None
+        # work counters: prefill calls (chunks of a long prompt count one
+        # each), live decode steps, decode chunks, and the speculative
+        # verify steps, slot-steps and emitted tokens
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
         self.n_decode_chunks = 0
+        self.spec_verify_steps = 0
+        self.spec_slot_steps = 0
+        self.spec_emitted = 0
 
     # ------------------------------------------------------------------
     # Page allocator
@@ -183,6 +227,27 @@ class ServingEngine:
         self.page_table[slot, :] = 0
         self.page_table[slot, :need] = ids
         self.slot_num_pages[slot] = need
+
+    def _reserve_fork_pages(self, req: Request, slot: int, parent_slot: int,
+                            plen: int) -> int:
+        """Fork ``slot`` off ``parent_slot``'s prompt: share the parent's
+        full prompt pages (refcount + 1), allocate its own pages for the rest
+        of [plen, plen + budget). Returns the parent's partial page to copy
+        (0: the prompt is page-aligned, nothing to copy)."""
+        P = self.page_size
+        total = min(plen + req.max_new_tokens, self.cfg.max_seq_len)
+        need = -(-total // P)
+        n_full = min(plen // P, need)
+        shared = [int(p) for p in self.page_table[parent_slot, :n_full]]
+        for p in shared:
+            self.page_ref[p] += 1
+        own = self._alloc_pages(need - n_full)
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :need] = shared + own
+        self.slot_num_pages[slot] = need
+        if plen % P != 0 and need > n_full:
+            return int(self.page_table[parent_slot, n_full])
+        return 0
 
     def _release_pages(self, slot: int) -> None:
         used = int(self.slot_num_pages[slot])
@@ -223,26 +288,53 @@ class ServingEngine:
             scaled = torch.where(scaled < cutoff, -torch.inf, scaled)
         return scaled
 
-    def _sample(self, logits: torch.Tensor, temps: torch.Tensor,
-                top_ps: torch.Tensor) -> torch.Tensor:
-        """(n, V) logits -> (n,) int32 tokens; temperature 0 is greedy."""
+    def _sample(self, logits: torch.Tensor, temps: torch.Tensor, top_ps: torch.Tensor,
+                key: Optional[torch.Tensor]) -> torch.Tensor:
+        """(n, V) logits -> (n,) int32 tokens; temperature 0 is greedy.
+        ``key``: one key for all rows, or one per row (``prng.categorical``);
+        unused when the engine does not sample."""
         logits = logits.float()
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         if not self.cfg.do_sample:
             return greedy
         scaled = self._filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None], top_ps)
-        probs = torch.softmax(scaled, dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=self.generator)[:, 0].to(torch.int32)
+        sampled = prng.categorical(key, scaled).to(torch.int32)
         return torch.where(temps > 1e-6, sampled, greedy)
+
+    def _next_seed(self) -> int:
+        """Seed of the next prefill or fork sampler (the JAX ``_next_seed``)."""
+        self._seed_ctr += 1
+        return (self.cfg.seed + 0x9E3779B1 * self._seed_ctr) & 0x7FFFFFFF
 
     # ------------------------------------------------------------------
     # Prefill
     # ------------------------------------------------------------------
+    def _set_slots(self, slot_ids, lengths, first, budgets, temps, top_ps, page_rows,
+                   history_rows=None) -> None:
+        """Write admitted slots' scheduling rows; a slot starts active unless
+        its first token already ends it. ``history_rows`` (n, width) are the
+        committed tokens before position ``lengths`` (speculative engines)."""
+        st = self.state
+        st["length"][slot_ids] = lengths
+        st["tokens"][slot_ids] = first
+        st["active"][slot_ids] = (first != self.eos_id) & (budgets > 1)
+        st["remaining"][slot_ids] = budgets - 1
+        st["temps"][slot_ids] = temps
+        st["top_ps"][slot_ids] = top_ps
+        st["pages_length"][slot_ids] = lengths
+        st["page_table"][slot_ids] = page_rows
+        if "history" in st:
+            hist = st["history"]
+            width = min(history_rows.shape[1], hist.shape[1])
+            hist[slot_ids, :width] = history_rows[:, :width].to(hist.dtype)
+            hist[slot_ids, lengths.long()] = first
+
     def _prefill(self, bucket: int, input_ids, attention_mask, mm_inputs, dest,
-                 slot_ids, page_rows, temps, top_ps, budgets):
+                 slot_ids, page_rows, temps, top_ps, budgets, seed: int):
         """Encode + splice + causal prefill of n requests into a local cache,
         then scatter the written pages into the pool and set the admitted
-        slots' scheduling rows. Returns (lengths, first_tokens)."""
+        slots' scheduling rows. Returns (lengths, first_tokens, last_logits);
+        forks sample from the last logits without re-running the prompt."""
         llm_cfg = self.model.config.llm
         st, n, P = self.state, input_ids.shape[0], self.page_size
         embeds = self.model.embed(input_ids, mm_inputs)
@@ -263,17 +355,178 @@ class ServingEngine:
                 # a bucket smaller than a page fills the first rows of one page
                 st[name][:, :, dest, :bucket] = local[name].permute(0, 2, 1, 3, 4)
         last_h = hidden[torch.arange(n, device=self.device), lengths.long() - 1]
-        first = self._sample(self.model.llm.lm_head_logits(last_h), temps, top_ps)
-        # a slot starts active unless the first token already ends it
-        st["length"][slot_ids] = lengths
-        st["tokens"][slot_ids] = first
-        st["active"][slot_ids] = (first != self.eos_id) & (budgets > 1)
-        st["remaining"][slot_ids] = budgets - 1
-        st["temps"][slot_ids] = temps
-        st["top_ps"][slot_ids] = top_ps
-        st["pages_length"][slot_ids] = lengths
-        st["page_table"][slot_ids] = page_rows
-        return lengths, first
+        last_logits = self.model.llm.lm_head_logits(last_h)
+        first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
+        self._set_slots(slot_ids, lengths, first, budgets, temps, top_ps, page_rows,
+                        input_ids)
+        return lengths, first, last_logits
+
+    def _chunk_mm(self, mm, start: int, length: int, bucket: int):
+        """A request's mm pack in chunk-local coordinates: spans outside
+        [start, start + length) point past the chunk (dropped by the splice).
+        Every chunk encodes the full item stack, as the JAX engine does."""
+        if not mm:
+            return None
+        out = {}
+        for mtype, pack in mm.items():
+            tp = np.asarray(pack["token_pos"])
+            bi = np.asarray(pack["batch_idx"])
+            in_chunk = (tp >= start) & (tp < start + length) & (bi < 1)
+            out[mtype] = {
+                "values": torch.from_numpy(np.asarray(pack["values"])).to(self.device),
+                "batch_idx": torch.from_numpy(
+                    np.where(in_chunk, 0, 1).astype(np.int32)).to(self.device),
+                "token_pos": torch.from_numpy(
+                    np.where(in_chunk, tp - start, bucket).astype(np.int32)).to(self.device),
+            }
+        return out
+
+    def _get_chunk_slab(self) -> Dict[str, torch.Tensor]:
+        """Persistent (L, 1, Hkv, pages_max * P, Dh) slab reused by every
+        chunked prefill (a chunk attends only positions its prompt wrote)."""
+        if self._chunk_slab is None:
+            llm = self.model.config.llm
+            shape = (llm.num_layers, 1, llm.num_kv_heads, self.pages_max * self.page_size,
+                     llm.head_dim_)
+            kw = dict(dtype=self.state["k"].dtype, device=self.device)
+            self._chunk_slab = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        return self._chunk_slab
+
+    def _prefill_chunked(self, req: Request, slot: int, reserve: bool = True) -> None:
+        """Prefill a prompt longer than the largest bucket in bucket-sized
+        causal chunks at offsets ``start`` into the slab, then fold the slab
+        into the slot's pages with one scatter."""
+        ids = np.asarray(req.batch["input_ids"])[0]
+        plen = int(np.asarray(req.batch["attention_mask"]).sum())
+        ids = ids[:plen]
+        W = self.cfg.prefill_buckets[-1]
+        mm = req.batch.get("mm_inputs") or {}
+        if reserve:
+            self._reserve_pages(req, slot)
+        dev, llm = self.device, self.model.llm
+        slab = self._get_chunk_slab()
+        cap = slab["k"].shape[3]
+        temps = torch.tensor([req.temperature], dtype=torch.float32, device=dev)
+        top_ps = torch.tensor([req.top_p], dtype=torch.float32, device=dev)
+        start = 0
+        with torch.inference_mode():
+            while start < plen:
+                c = min(W, plen - start)
+                bucket = next(b for b in self.cfg.prefill_buckets if c <= b)
+                # a chunk's padding past the slab's end is dropped, as JAX's
+                # out-of-range cache writes are
+                width = min(bucket, cap - start)
+                chunk_ids = np.zeros((1, width), np.int64)
+                chunk_ids[0, :c] = ids[start: start + c]
+                chunk_mask = np.zeros((1, width), np.int32)
+                chunk_mask[0, :c] = 1
+                seed = self._next_seed()
+                embeds = self.model.embed(torch.from_numpy(chunk_ids).to(dev),
+                                          self._chunk_mm(mm, start, c, bucket))
+                cache = {"k": slab["k"], "v": slab["v"],
+                         "length": torch.tensor([start], dtype=torch.int32, device=dev)}
+                hidden, _ = llm(inputs_embeds=embeds,
+                                attention_mask=torch.from_numpy(chunk_mask).to(dev),
+                                kv_cache=cache, prefill=True, return_hidden=True)
+                last_logits = llm.lm_head_logits(hidden[:, c - 1])
+                first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
+                self.n_prefill_calls += 1
+                start += c
+            self._last_prefill_logits = last_logits
+            # fold the prompt's KV into the page pool once
+            L, _, Hkv, _, Dh = slab["k"].shape
+            dest = torch.from_numpy(self.page_table[slot].astype(np.int64)).to(dev)
+            for name in ("k", "v"):
+                self.state[name].index_copy_(
+                    2, dest, slab[name][:, 0].reshape(L, Hkv, self.pages_max, self.page_size, Dh))
+            self._set_slots(
+                torch.tensor([slot], device=dev), torch.tensor([plen], dtype=torch.int32, device=dev),
+                first, torch.tensor([req.max_new_tokens], dtype=torch.int32, device=dev),
+                temps, top_ps, torch.from_numpy(self.page_table[slot:slot + 1]).to(dev),
+                torch.from_numpy(ids[None].astype(np.int32)).to(dev))
+            first = int(first.cpu()[0])
+        self._admit_on_host(req, slot, plen, first, time.time())
+
+    def _admit_on_host(self, req: Request, slot: int, length: int, first: int,
+                       now: float) -> None:
+        """Host mirror of an admitted slot (its device row is already set)."""
+        req.first_token_time = now
+        req.tokens.append(first)
+        self.slot_request[slot] = req
+        self.lengths[slot] = length
+        self.slot_budget[slot] = req.max_new_tokens
+        self.slot_generated[slot] = 1
+        if first == self.eos_id:
+            self._finish(slot, reason="eos")
+        elif req.max_new_tokens <= 1:
+            self._finish(slot, reason="budget")
+        else:
+            self.active[slot] = True
+
+    # ------------------------------------------------------------------
+    # Forked groups
+    # ------------------------------------------------------------------
+    def _fork(self, fork_slots: List[int], src_page: int, dst_pages: List[int], plen: int,
+              forks: List[Request], seed: int, src_slot: int) -> torch.Tensor:
+        """Admit slots sharing a just-prefilled prompt: copy the parent's
+        partial last page into each fork's own page and sample the forks'
+        first tokens from the primary's saved last logits."""
+        st, dev = self.state, self.device
+        n = len(fork_slots)
+        if src_page:
+            dst = torch.tensor(dst_pages, dtype=torch.long, device=dev)
+            for name in ("k", "v"):
+                src = st[name][:, :, src_page:src_page + 1]
+                st[name].index_copy_(2, dst, src.expand(-1, -1, n, -1, -1).contiguous())
+        logits = self._last_prefill_logits[0].expand(n, -1)
+        temps = torch.tensor([r.temperature for r in forks], dtype=torch.float32, device=dev)
+        top_ps = torch.tensor([r.top_p for r in forks], dtype=torch.float32, device=dev)
+        budgets = torch.tensor([r.max_new_tokens for r in forks], dtype=torch.int32, device=dev)
+        first = self._sample(logits, temps, top_ps, prng.prng_key(seed))
+        history = (st["history"][src_slot:src_slot + 1].expand(n, -1).clone()
+                   if "history" in st else None)
+        self._set_slots(torch.tensor(fork_slots, device=dev),
+                        torch.full((n,), plen, dtype=torch.int32, device=dev), first, budgets,
+                        temps, top_ps, torch.from_numpy(self.page_table[fork_slots]).to(dev),
+                        history)
+        return first
+
+    def _try_admit_group(self, primary: Request, free: List[int]) -> bool:
+        """Admit a forked group (primary + siblings) atomically: one
+        prefill, then the fork. Returns False when slots or pages are short
+        (the group waits at the queue head)."""
+        forks = primary.forks
+        need_slots = 1 + len(forks)
+        if len(free) < need_slots:
+            return False
+        plen = int(np.asarray(primary.batch["attention_mask"]).sum())
+        p_need = self._required_pages(primary)
+        n_full = min(plen // self.page_size, p_need)
+        own = max(p_need - n_full, 0)
+        if p_need + len(forks) * own > len(self.free_pages):
+            return False
+        self.queue.remove(primary)
+        slots = [free.pop(0) for _ in range(need_slots)]
+        slot0, fork_slots = slots[0], slots[1:]
+        # every page is reserved first: the forks' refcounts on the shared
+        # prompt pages must exist before the primary might finish and release
+        self._reserve_pages(primary, slot0)
+        src_page = 0
+        for f, s in zip(forks, fork_slots):
+            src_page = self._reserve_fork_pages(f, s, slot0, plen) or src_page
+        if self._bucket_for(primary.batch["input_ids"].shape[1]) is None:
+            self._prefill_chunked(primary, slot0, reserve=False)
+        else:
+            self._prefill_group([primary], [slot0], self._request_signature(primary),
+                                reserve=False)
+        dst_pages = [int(self.page_table[s, n_full]) for s in fork_slots]
+        with torch.inference_mode():
+            first = self._fork(fork_slots, src_page, dst_pages, plen, forks,
+                               self._next_seed(), slot0).cpu().numpy()
+        now = time.time()
+        for j, (req, slot) in enumerate(zip(forks, fork_slots)):
+            self._admit_on_host(req, slot, plen, int(first[j]), now)
+        return True
 
     # ------------------------------------------------------------------
     # Decode
@@ -284,18 +537,20 @@ class ServingEngine:
         Returns the (chunk, slots) token matrix."""
         st, eos, max_len = self.state, self.eos_id, self.cfg.max_seq_len
         llm = self.model.llm
-        cache = {k: st[k] for k in ("k", "v", "ring_k", "ring_v", "length",
-                                    "page_table", "pages_length")}
+        cache = {k: st[k] for k in CACHE_KEYS}
         tokens, active, remaining = st["tokens"], st["active"], st["remaining"]
+        # the JAX chunk splits its key once per step, dead steps included
+        key = prng.prng_key(st["seed"])
         rows = []
         for _ in range(chunk):
+            key, sub = prng.split(key) if self.cfg.do_sample else (key, None)
             if not bool(active.any()):  # every slot is done: skip the step
                 rows.append(tokens)
                 continue
             self.n_decode_steps += 1
             logits, new_cache = llm(inputs_embeds=llm.embed(tokens)[:, None, :],
                                     kv_cache=cache)
-            nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"])
+            nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"], sub)
             nxt = torch.where(active, nxt, eos)
             # only active slots advance their cache length
             cache["length"] = torch.where(active, new_cache["length"], cache["length"])
@@ -315,7 +570,114 @@ class ServingEngine:
         st["tokens"].copy_(tokens)
         st["active"].copy_(active)
         st["remaining"].copy_(remaining)
+        st["seed"] = _wrap_int32(st["seed"] + 1)
         return toks
+
+    def _draft(self, history: torch.Tensor, length: torch.Tensor,
+               last_tok: torch.Tensor) -> torch.Tensor:
+        """(B, k) n-gram drafts. Committed tokens are history[:, :length + 1]
+        (history[length] == last_tok). The most recent earlier occurrence of
+        the current trigram outranks any bigram match; the draft is the k
+        tokens that followed it, or the last token repeated when nothing
+        matches. Any draft is correct under verification: a miss costs speed."""
+        k = self.spec_k
+        Lh = history.shape[1]
+        pos = torch.arange(Lh, device=history.device)[None, :]
+        n = length.long()[:, None]
+        prev = history.gather(1, (n - 1).clamp(min=0))
+        prev2 = history.gather(1, (n - 2).clamp(min=0))
+        m2 = (history.roll(1, dims=1) == prev) & (history == last_tok[:, None])
+        m3 = m2 & (history.roll(2, dims=1) == prev2) & (n >= 2)
+        valid = (pos >= 1) & (pos <= n - 1) & (n >= 1)
+        score = torch.where(m3 & valid, pos + Lh, torch.where(m2 & valid, pos, -1))
+        j_s = score.amax(dim=1)
+        found = j_s >= 1
+        j = torch.where(j_s >= Lh, j_s - Lh, j_s)
+        start = (j + 1).clamp(0, Lh - k)
+        cand = history.gather(1, start[:, None] + torch.arange(k, device=history.device)[None, :])
+        return torch.where(found[:, None], cand, last_tok[:, None])
+
+    def _verify_step(self, cache, history, tokens, active, remaining):
+        """One draft -> verify -> accept step over the slot pool (the JAX
+        speculative ``one_step``). Returns the new (history, tokens, active,
+        remaining) and the step's (B, k+1) tokens and emission mask."""
+        st, cfg, k = self.state, self.cfg, self.spec_k
+        llm, eos, max_len = self.model.llm, self.eos_id, cfg.max_seq_len
+        B, Lh = history.shape
+        length = cache["length"]
+        block = torch.cat([tokens[:, None], self._draft(history, length, tokens)], dim=1)
+        logits, new_cache = llm(inputs_embeds=llm.embed(block), kv_cache=cache)
+        logits = logits.float()                                  # (B, k+1, V)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        idx = torch.arange(k + 1, device=self.device)[None, :]
+        if cfg.do_sample:
+            # position-keyed: the token at position p of slot b draws with
+            # fold_in(PRNGKey(seed), b * 2**20 + p), whatever k and the drafts
+            ids = (torch.arange(B, device=self.device)[:, None] * (1 << 20)
+                   + length[:, None].long() + idx).reshape(-1)
+            keys = prng.fold_in(prng.prng_key(_wrap_int32(cfg.seed)), ids)
+            V = logits.shape[-1]
+            scaled = self._filter_logits(
+                (logits / torch.clamp(st["temps"], min=1e-6)[:, None, None]).reshape(-1, V),
+                st["top_ps"].repeat_interleave(k + 1))
+            sampled = prng.categorical(keys, scaled).reshape(B, k + 1).to(torch.int32)
+            g = torch.where(st["temps"][:, None] > 1e-6, sampled, greedy)
+        else:
+            g = greedy
+        # accept the longest draft prefix the verifier agrees with, plus one
+        match = (block[:, 1:] == g[:, :-1]).to(torch.int32)
+        a = torch.cumprod(match, dim=1).sum(dim=1)
+        emit = idx <= a[:, None]
+        # stop at the first EOS (inclusive), the budget and the cache's end
+        eos_hit = (g == eos) & emit
+        after = torch.cumsum(eos_hit.to(torch.int32), dim=1) - eos_hit.to(torch.int32)
+        emit = emit & (after == 0) & (idx < remaining[:, None])
+        emit = emit & (length[:, None] + idx <= max_len - 1) & active[:, None]
+        n_emit = emit.sum(dim=1, dtype=torch.int32)
+        last = g.gather(1, (n_emit.long() - 1).clamp(min=0)[:, None])[:, 0]
+        tokens = torch.where(n_emit > 0, last, tokens)
+        finished_eos = (eos_hit & emit).any(dim=1)
+        new_length = length + n_emit
+        remaining = remaining - n_emit
+        active = active & ~finished_eos & (remaining > 0) & (new_length < max_len)
+        # committed tokens land at length + 1 + i; the others are dropped
+        pos = torch.where(emit, length[:, None].long() + 1 + idx, Lh)
+        hist = torch.cat([history, history.new_zeros((B, 1))], dim=1)
+        history = hist.scatter_(1, pos, g)[:, :Lh]
+        # fold every verify step: accepted rows land in their pages, rejected
+        # rows (past the new length) are not written, and the next block
+        # starts at ring row 0 again
+        fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"], st["page_table"],
+                             new_cache["pages_length"], st["ring_k"].shape[3], new_length)
+        cache["length"] = new_length
+        cache["pages_length"] = new_length
+        return history, tokens, active, remaining, g, emit
+
+    def _spec_chunk(self, n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``n_steps`` verify steps; returns the (n_steps, slots, k+1) token
+        matrix and emission mask."""
+        st = self.state
+        cache = {k: st[k] for k in CACHE_KEYS}
+        history, tokens = st["history"], st["tokens"]
+        active, remaining = st["active"], st["remaining"]
+        B, k = tokens.shape[0], self.spec_k
+        gs, emits = [], []
+        for _ in range(n_steps):
+            if not bool(active.any()):  # every slot is done: skip the step
+                gs.append(torch.zeros((B, k + 1), dtype=torch.int32, device=self.device))
+                emits.append(torch.zeros((B, k + 1), dtype=torch.bool, device=self.device))
+                continue
+            history, tokens, active, remaining, g, emit = self._verify_step(
+                cache, history, tokens, active, remaining)
+            gs.append(g)
+            emits.append(emit)
+        st["length"].copy_(cache["length"])
+        st["pages_length"].copy_(cache["pages_length"])
+        st["history"].copy_(history)
+        st["tokens"].copy_(tokens)
+        st["active"].copy_(active)
+        st["remaining"].copy_(remaining)
+        return torch.stack(gs), torch.stack(emits)
 
     # ------------------------------------------------------------------
     # Public API
@@ -330,11 +692,7 @@ class ServingEngine:
             raise ValueError(
                 "per-request top_p needs the engine built with "
                 "EngineConfig(top_p < 1.0) so the nucleus filter is on")
-        if self._bucket_for(batch["input_ids"].shape[1]) is None:
-            raise NotImplementedError(
-                f"a prompt of {batch['input_ids'].shape[1]} tokens exceeds the largest "
-                f"prefill bucket {max(self.cfg.prefill_buckets)}; chunked prefill is "
-                "not ported yet (ROADMAP queue 1, serve/engine.py)")
+        self._bucket_for(batch["input_ids"].shape[1])  # raises for a prompt too long
         req = Request(
             request_id=self._next_id,
             batch=batch,
@@ -352,14 +710,39 @@ class ServingEngine:
         self.queue.append(req)
         return req
 
-    def submit_group(self, batch: Dict[str, Any], n: int, **kw) -> List[Request]:
-        """``n`` requests over one prompt. Only ``n == 1`` is ported: the
-        prefix-sharing forks of ``n > 1`` are not yet."""
-        if n != 1:
-            raise NotImplementedError(
-                "submit_group(n > 1) (forked groups) is not ported yet "
-                "(ROADMAP queue 1, serve/engine.py)")
-        return [self.submit(batch, **kw)]
+    def submit_group(self, batch: Dict[str, Any], n: int, max_new_tokens: Optional[int] = None,
+                     temperature: Optional[float] = None,
+                     top_p: Optional[float] = None) -> List[Request]:
+        """Queue ``n`` requests over one prompt. The prompt prefills once and
+        the n - 1 siblings fork its KV: they share its full pages by
+        refcount, each owning its decode pages and a copy of the partial
+        tail page."""
+        if n < 1:
+            raise ValueError("submit_group needs n >= 1")
+        kw = dict(max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p)
+        if n == 1:
+            return [self.submit(batch, **kw)]
+        if n > self.cfg.max_slots:
+            raise ValueError(
+                f"group of {n} exceeds max_slots={self.cfg.max_slots}; "
+                "a forked group is admitted atomically")
+        primary = self.submit(batch, **kw)
+        plen = int(np.asarray(batch["attention_mask"]).sum())
+        p_need = self._required_pages(primary)
+        own = max(p_need - min(plen // self.page_size, p_need), 0)
+        if p_need + (n - 1) * own > self.num_pages - 1:
+            self.queue.remove(primary)
+            raise ValueError(
+                f"group needs {p_need + (n - 1) * own} KV pages but the "
+                f"pool only has {self.num_pages - 1}; raise num_pages or "
+                "lower max_new_tokens/group size")
+        for _ in range(n - 1):
+            primary.forks.append(Request(
+                request_id=self._next_id, batch=batch,
+                max_new_tokens=primary.max_new_tokens, temperature=primary.temperature,
+                top_p=primary.top_p, submit_time=primary.submit_time))
+            self._next_id += 1
+        return [primary] + primary.forks
 
     def _bucket_for(self, seq_len: int) -> Optional[int]:
         """Smallest bucket holding ``seq_len``; None -> chunked prefill."""
@@ -391,20 +774,33 @@ class ServingEngine:
 
     def _admit(self) -> None:
         """Move queued requests into free slots: same-signature requests
-        prefill in one batched call; the head waits (FIFO) while the page
-        pool cannot host it."""
+        prefill in one batched call; a forked group is admitted atomically;
+        a prompt longer than the largest bucket prefills in chunks. The head
+        waits (FIFO) while the page pool cannot host it. With
+        ``prefill_group_cap`` one group is admitted per engine step."""
+        cap = self.cfg.prefill_group_cap
         free = [s for s in range(self.cfg.max_slots)
                 if not self.active[s] and self.slot_request[s] is None]
         while self.queue and free:
             head = self.queue[0]
+            if head.forks:
+                if not self._try_admit_group(head, free):
+                    break
+                continue
             if self._required_pages(head) > len(self.free_pages):
                 break  # pool exhausted: wait for pages, don't starve the head
-            take = self.queue[: len(free)]
+            if self._bucket_for(head.batch["input_ids"].shape[1]) is None:
+                self.queue.remove(head)
+                self._prefill_chunked(head, free.pop(0))
+                continue
+            take = [r for r in self.queue[: len(free)] if not r.forks
+                    and self._bucket_for(r.batch["input_ids"].shape[1]) is not None]
             sig = self._request_signature(take[0])
             group = [r for r in take if self._request_signature(r) == sig]
-            # cap the group to a power of two, as the JAX engine does (there to
-            # bound its compiled variants), so both engines batch alike
-            group = group[: 1 << (len(group).bit_length() - 1)]
+            # the cap bounds the group, else a power of two does, as the JAX
+            # engine does (there to bound its compiled variants), so both
+            # engines batch alike
+            group = group[:cap] if cap else group[: 1 << (len(group).bit_length() - 1)]
             budget, fits = len(self.free_pages), 0
             for r in group:
                 need = self._required_pages(r)
@@ -412,13 +808,18 @@ class ServingEngine:
                     break
                 budget -= need
                 fits += 1
+            if fits == 0:
+                break
             group = group[:fits]
             for r in group:
                 self.queue.remove(r)
             slots, free = free[: len(group)], free[len(group):]
             self._prefill_group(group, slots, sig)
+            if cap:
+                break  # staggered: this step's decode chunk runs before the next group
 
-    def _prefill_group(self, group: List[Request], slots: List[int], sig) -> None:
+    def _prefill_group(self, group: List[Request], slots: List[int], sig,
+                       reserve: bool = True) -> None:
         bucket, _ = sig
         n, dev = len(group), self.device
         input_ids = np.concatenate([self._pad_to(r.batch["input_ids"], bucket) for r in group])
@@ -441,8 +842,9 @@ class ServingEngine:
                     "batch_idx": torch.from_numpy(batch_idx).to(dev),
                     "token_pos": torch.from_numpy(token_pos).to(dev),
                 }
-        for req, slot in zip(group, slots):
-            self._reserve_pages(req, slot)
+        if reserve:
+            for req, slot in zip(group, slots):
+                self._reserve_pages(req, slot)
         dest = self._bucket_page_ids(slots, bucket).astype(np.int64)
         page_rows = self.page_table[np.asarray(slots)]
 
@@ -450,30 +852,19 @@ class ServingEngine:
             return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
         with torch.inference_mode():
-            lengths, first = self._prefill(
+            lengths, first, last_logits = self._prefill(
                 bucket, t(input_ids, torch.long), t(mask, torch.int32), mm,
                 t(dest, torch.long), t(slots, torch.long), t(page_rows, torch.int32),
                 t([r.temperature for r in group], torch.float32),
                 t([r.top_p for r in group], torch.float32),
-                t([r.max_new_tokens for r in group], torch.int32))
+                t([r.max_new_tokens for r in group], torch.int32), self._next_seed())
             lengths, first = lengths.cpu().numpy(), first.cpu().numpy()
+        self._last_prefill_logits = last_logits
         self.n_prefill_calls += 1
 
         now = time.time()
         for j, (req, slot) in enumerate(zip(group, slots)):
-            tok = int(first[j])
-            req.first_token_time = now
-            req.tokens.append(tok)
-            self.slot_request[slot] = req
-            self.lengths[slot] = int(lengths[j])
-            self.slot_budget[slot] = req.max_new_tokens
-            self.slot_generated[slot] = 1
-            if tok == self.eos_id:
-                self._finish(slot, reason="eos")
-            elif req.max_new_tokens <= 1:
-                self._finish(slot, reason="budget")
-            else:
-                self.active[slot] = True
+            self._admit_on_host(req, slot, int(lengths[j]), int(first[j]), now)
 
     def _finish(self, slot: int, reason: str = "budget") -> None:
         self._release_pages(slot)
@@ -496,12 +887,18 @@ class ServingEngine:
                 self._finish(slot, reason="capacity")
         if not self.active.any():
             return bool(self.queue)
+        if self.spec_k:
+            return self._spec_step()
 
         # shrink the final chunk to the tightest active slot's headroom, to a
         # power of two as the JAX engine does, so both admit at the same steps
         headroom = min(self.cfg.max_seq_len - int(self.lengths[s])
                        for s in range(self.cfg.max_slots) if self.active[s])
         chunk_now = min(self.decode_chunk, max(1, headroom))
+        if self.cfg.prefill_group_cap and self.queue:
+            # staggered admission: a 1-step chunk between groups keeps the
+            # admitted streams alive without delaying the next group's prefill
+            chunk_now = 1
         chunk_now = 1 << (chunk_now.bit_length() - 1)
 
         active_at_start = self.active.copy()
@@ -531,6 +928,42 @@ class ServingEngine:
                     break
         return bool(self.queue) or bool(self.active.any())
 
+    def _spec_step(self) -> bool:
+        """A chunk of verify steps + the host-mirror replay. EOS, budget and
+        capacity are enforced on the device by the emission mask; the
+        mirrors replay it."""
+        n_steps = 1 if (self.cfg.prefill_group_cap and self.queue) else self.decode_chunk
+        with torch.inference_mode():
+            gs, ems = self._spec_chunk(n_steps)
+            gs, ems = gs.cpu().numpy(), ems.cpu().numpy()  # (n_steps, slots, k+1)
+        # verify steps with a live slot, live slot-steps and committed
+        # tokens: emitted / slot-steps is the tokens each verify yields
+        live = ems.any(axis=2)
+        self.spec_verify_steps += int(live.any(axis=1).sum())
+        self.spec_slot_steps += int(live.sum())
+        self.spec_emitted += int(ems.sum())
+        for s in range(gs.shape[0]):
+            for slot in range(self.cfg.max_slots):
+                req = self.slot_request[slot]
+                if req is None or not self.active[slot]:
+                    continue
+                for i in range(gs.shape[2]):
+                    if not ems[s, slot, i]:
+                        continue
+                    tok = int(gs[s, slot, i])
+                    req.tokens.append(tok)
+                    self.slot_generated[slot] += 1
+                    self.lengths[slot] += 1
+                    if tok == self.eos_id:
+                        self._finish(slot, reason="eos")
+                        break
+                if self.slot_request[slot] is not None and self.active[slot]:
+                    if self.slot_generated[slot] >= self.slot_budget[slot]:
+                        self._finish(slot, reason="budget")
+                    elif self.lengths[slot] >= self.cfg.max_seq_len:
+                        self._finish(slot, reason="capacity")
+        return bool(self.queue) or bool(self.active.any())
+
     def run(self) -> None:
         """Drain the queue completely."""
         while self.step():
@@ -540,12 +973,17 @@ class ServingEngine:
                  max_new_tokens: Optional[int] = None,
                  temperature: Optional[float] = None,
                  group_size: Optional[int] = None) -> List[List[int]]:
-        """Synchronous batch generation through the continuous-batching path."""
+        """Synchronous batch generation through the continuous-batching path.
+        With ``group_size=G`` each run of G batches repeats one prompt (the
+        GRPO rollout layout) and goes through ``submit_group``."""
+        kw = dict(max_new_tokens=max_new_tokens, temperature=temperature)
         if group_size and group_size > 1:
-            raise NotImplementedError(
-                "group_size > 1 (forked groups) is not ported yet "
-                "(ROADMAP queue 1, serve/engine.py)")
-        reqs = [self.submit(b, max_new_tokens=max_new_tokens, temperature=temperature)
-                for b in batches]
+            if len(batches) % group_size != 0:
+                raise ValueError("len(batches) must be a multiple of group_size")
+            reqs: List[Request] = []
+            for i in range(0, len(batches), group_size):
+                reqs.extend(self.submit_group(batches[i], group_size, **kw))
+        else:
+            reqs = [self.submit(b, **kw) for b in batches]
         self.run()
         return [r.tokens for r in reqs]

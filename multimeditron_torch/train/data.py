@@ -36,7 +36,7 @@ def build_datasets(dataset_configs: List[Dict[str, Any]], seed: int = 0, num_pro
         if is_dataset_folder(path):
             ds = load_from_disk(path)
         elif path.endswith(".jsonl"):
-            from multimeditron_tpu.utils.jsonl import JSONLGenerator
+            from multimeditron_torch.utils.jsonl import JSONLGenerator
 
             gen = JSONLGenerator(path)
             ds = Dataset.from_generator(lambda gen=gen: iter(gen))

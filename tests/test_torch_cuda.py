@@ -6,8 +6,9 @@ with one (and without JAX), run from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Shapes are small and cover the edges the main path's shapes miss: tiny head
-dims, ragged sequences, GQA groups from 1 to 8, empty slots, fully masked
-attention rows. Gradients are compared relative to the largest gradient
+dims, ragged sequences, GQA groups from 1 to 8 (16 in a verify block of 64
+rows per kv head), empty slots, fully masked attention rows, verify rows
+that see no key of a split. Gradients are compared relative to the largest gradient
 value (they are not of order 1): f32 1e-4, bf16 2e-2.
 """
 
@@ -99,6 +100,55 @@ def test_ring_decode_kernel_skips_poisoned_rows(gen):
     got = paged.ring_decode_attention(q, kp, vp, rk, rv, table, plen, lengths, 0)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _verify(gen, dtype, B, group, Hkv, S, D, P, pm, pages_len, gen_rows):
+    """A verify block of S rows per head over the _paged pool; gen_rows[b] is
+    the ring row of slot b's first block row (g = lengths - pages_len)."""
+    args = _paged(gen, dtype, B, group * Hkv, Hkv, D, P, pm, pages_len, gen_rows)
+    q = torch.randn(B, group * Hkv, S, D, generator=gen, device="cuda", dtype=dtype)
+    return (q,) + args[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,Hkv,S,D,P", [
+    (1, 2, 3, 16, 16), (2, 2, 2, 64, 16), (4, 8, 5, 128, 128),  # Llama-3.1-8B, k = 4
+    (8, 1, 8, 128, 64), (16, 2, 4, 128, 128),                   # 64 rows per kv head
+])
+def test_ring_verify_kernel(gen, dtype, group, Hkv, S, D, P):
+    """Page lengths of 0, a page boundary and P - 1, where the block's first
+    ring row ends split 0 and its other rows open split 1 (the ragged split
+    edge: row 0 sees no key of split 1); g = 0 and g > 0."""
+    pages_len = [0, 1, P - 1, P, 2 * P + 3, 4 * P - 16]
+    gen_rows = [0, 3, 0, 1, 7, 16 - S]
+    args = _verify(gen, dtype, 6, group, Hkv, S, D, P, 4, pages_len, gen_rows)
+    for layer in (0, 1):
+        before = paged.launches["ring_verify_attention"]
+        got = paged.ring_verify_attention(*args, layer)
+        assert paged.launches["ring_verify_attention"] == before + 1
+        _assert_close(got, paged.ring_verify_attention_plain(*args, layer), dtype)
+
+
+def test_ring_verify_kernel_skips_poisoned_rows(gen):
+    """NaN in the trash page and in ring rows past a slot's block never
+    reaches its output."""
+    q, kp, vp, rk, rv, table, plen, lengths = _verify(
+        gen, torch.float32, 3, 2, 2, 3, 64, 16, 3, [5, 16, 0], [2, 0, 4])
+    want = paged.ring_verify_attention(q, kp, vp, rk, rv, table, plen, lengths, 0)
+    kp[:, :, 0] = float("nan")
+    vp[:, :, 0] = float("nan")
+    for b in range(3):
+        rk[:, b, :, int(lengths[b] - plen[b]) + 3:] = float("nan")
+        rv[:, b, :, int(lengths[b] - plen[b]) + 3:] = float("nan")
+    got = paged.ring_verify_attention(q, kp, vp, rk, rv, table, plen, lengths, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ring_verify_kernel_rejects_too_many_rows(gen):
+    q, *rest = _verify(gen, torch.float32, 2, 16, 1, 5, 32, 16, 2, [3, 0], [0, 1])
+    with pytest.raises(ValueError, match="query rows per kv head"):
+        paged.ring_verify_attention(q, *rest, 0)  # 16 heads x 5 rows = 80 > 64
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,6 +1,7 @@
 """Port parity: the paged serving engine against the JAX ServingEngine on
-tests.test_multimodal.tiny_mm_config, greedy, f32, on the CPU: identical
-tokens, every page free after run(), pool exhaustion queues requests."""
+tests.test_multimodal.tiny_mm_config, f32, on the CPU: identical greedy and
+sampled tokens, every page free after run(), pool exhaustion queues
+requests."""
 
 import jax
 import numpy as np
@@ -25,12 +26,29 @@ BASE = dict(max_slots=2, max_seq_len=128, max_new_tokens=8, prefill_buckets=(32,
 
 
 @pytest.fixture(scope="module")
-def pair():
-    """(port model, collated PROMPTS, the JAX paged engine's greedy tokens),
-    set up as in tests/test_paged_engine.py."""
+def jax_model():
+    """The JAX model (eos 2) and its seeded params, as in
+    tests/test_paged_engine.py."""
     jmodel = MultimodalModel(tiny_mm_config())
     jmodel.config.eos_token_idx = 2
-    params = jmodel.init_params(jax.random.PRNGKey(0))
+    return jmodel, jmodel.init_params(jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def port_model(jax_model):
+    """The port's model on the CPU with the JAX model's weights."""
+    jmodel, params = jax_model
+    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()),
+                                device="cpu")
+    assert tmodel.config.eos_token_idx == 2
+    load_jax_params(tmodel, jax.tree.map(np.asarray, params))
+    return tmodel
+
+
+@pytest.fixture(scope="module")
+def pair(jax_model, port_model):
+    """(port model, collated PROMPTS, the JAX paged engine's greedy tokens)."""
+    jmodel, params = jax_model
     collator = DataCollatorForMultimodal(
         tokenizer=ToyTokenizer(),
         modality_processors=jmodel.processors(),
@@ -40,12 +58,9 @@ def pair():
         add_generation_prompt=True,
         pad_to_multiple=8,
     )
-    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()))
-    assert tmodel.config.eos_token_idx == 2
-    load_jax_params(tmodel, jax.tree.map(np.asarray, params))
     batches = [collator([p]) for p in PROMPTS]
     want = JServingEngine(jmodel, params, JEngineConfig(**BASE)).generate(batches)
-    return tmodel, batches, want
+    return port_model, batches, want
 
 
 def _engine(tmodel, **kw):
@@ -87,20 +102,33 @@ def test_sampling_is_seeded_and_filtered(pair):
     assert greedy == pair[2]
 
 
+def test_plain_sampled_tokens_match_jax(pair, jax_model):
+    """do_sample=True plain decode: threefry keys as the JAX engine derives
+    them (prefill seeds, one split per decode step, seed + 1 per chunk) give
+    the JAX engine's tokens, with top-k and top-p on."""
+    tmodel, batches, _ = pair
+    jmodel, params = jax_model
+    kw = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.9, seed=3, decode_chunk=4)
+    want = JServingEngine(jmodel, params, JEngineConfig(**{**BASE, **kw})).generate(batches)
+    assert _engine(tmodel, **kw).generate(batches) == want
+
+
 def test_oversized_and_long_prompts_rejected(pair):
     tmodel, batches, _ = pair
     eng = _engine(tmodel, num_pages=2)
     with pytest.raises(ValueError, match="KV pages"):
         eng.submit(batches[0], max_new_tokens=100)
-    long_batch = {"input_ids": np.ones((1, 70), np.int32),
-                  "attention_mask": np.ones((1, 70), np.int32)}
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
+    # longer than the largest bucket prefills in chunks; no room to decode raises
+    long_batch = {"input_ids": np.ones((1, 128), np.int32),
+                  "attention_mask": np.ones((1, 128), np.int32)}
+    with pytest.raises(ValueError, match="max_seq_len"):
         _engine(tmodel).submit(long_batch)
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_mode="slab"), dict(speculative_k=2), dict(tp=2), dict(quantize_llm=True),
-    dict(w8a8_prefill=True), dict(prefill_group_cap=1), dict(attn_impl="xla"),
+    dict(kv_mode="slab"), dict(speculative_k=2, kv_mode="slab"), dict(tp=2),
+    dict(quantize_llm=True), dict(w8a8_prefill=True), dict(prefill_group_cap=1, tp=2),
+    dict(attn_impl="xla"),
 ])
 def test_unported_engine_options_raise(pair, option):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -108,16 +136,24 @@ def test_unported_engine_options_raise(pair, option):
 
 
 def test_forked_groups_raise(pair):
+    """Forked groups run (tests/test_torch_engine_groups.py); malformed ones
+    raise."""
     tmodel, batches, _ = pair
     eng = _engine(tmodel)
-    with pytest.raises(NotImplementedError, match="forked"):
-        eng.submit_group(batches[0], 2)
-    with pytest.raises(NotImplementedError, match="forked"):
-        eng.generate(batches, group_size=3)
+    with pytest.raises(ValueError, match="n >= 1"):
+        eng.submit_group(batches[0], 0)
+    with pytest.raises(ValueError, match="max_slots"):
+        eng.submit_group(batches[0], 3)
+    with pytest.raises(ValueError, match="multiple of group_size"):
+        eng.generate(batches, group_size=2)
+    assert not eng.queue
 
 
 def test_engine_state_lives_on_the_model_device(pair):
-    eng = _engine(pair[0])
+    eng = _engine(pair[0], speculative_k=3)
     assert eng.device == torch.device("cpu")
-    assert all(t.device == eng.device for t in eng.state.values())
+    tensors = {k: t for k, t in eng.state.items() if k != "seed"}
+    assert all(t.device == eng.device for t in tensors.values())
+    assert eng.state["seed"] == 0  # the plain decode chunk's seed, a host int
     assert eng.state["ring_k"].shape[3] == 16  # ring rounded up to 16 rows
+    assert eng.state["history"].shape == (2, 128 + 3 + 2)

@@ -1,6 +1,6 @@
 """Port parity: the Llama decoder against JAX in f32 — no cache, contiguous
-prefill into a cache, and one paged decode step — with weights moved by
-multimeditron_torch.convert."""
+prefill into a cache, one paged decode step and one speculative verify block
+— with weights moved by multimeditron_torch.convert."""
 
 import dataclasses
 
@@ -43,7 +43,7 @@ def _pair(name, seed=0):
     jcfg = CONFIGS[name]
     params = perturbed(jl.init_llama_params(jax.random.PRNGKey(seed), jcfg), seed=seed)
     tcfg = tl.LlamaConfig(**{**dataclasses.asdict(jcfg), "dtype": torch.float32})
-    model = tl.Llama(tcfg)
+    model = tl.Llama(tcfg, device="cpu")
     load_jax_params(model, params)
     return jcfg, params, model
 
@@ -130,6 +130,38 @@ def test_paged_decode_step_matches_jax():
     np.testing.assert_array_equal(tnew["length"].numpy(), np.asarray(jnew["length"]))
 
 
+@pytest.mark.parametrize("gen", [[0, 0, 0], [2, 2, 0]])
+def test_paged_verify_block_matches_jax(gen):
+    """A speculative verify block (S = 3) against a page pool + ring: the
+    block's K/V land at ring rows [t, t + 3), t = max(length - pages_len),
+    and the logits match, with the engine's contract (every slot folded,
+    t = 0) and with ring rows already in use (t = 2)."""
+    jcfg, params, model = _pair("llama_gqa", seed=7)
+    B, P, pm, n_pages, T, S = 3, 8, 3, 10, 16, 3
+    L, Hkv, Dh = jcfg.num_layers, jcfg.num_kv_heads, jcfg.head_dim_
+    rng = np.random.default_rng(8)
+    kp = rng.normal(size=(L, Hkv, n_pages, P, Dh)).astype(np.float32)
+    vp = rng.normal(size=kp.shape).astype(np.float32)
+    rk = rng.normal(size=(L, B, Hkv, T, Dh)).astype(np.float32)
+    rv = rng.normal(size=rk.shape).astype(np.float32)
+    table = np.array([[3, 7, 0], [1, 0, 0], [5, 2, 9]], np.int32)
+    pages_len = np.array([10, 4, 0], np.int32)
+    length = pages_len + np.asarray(gen, np.int32)
+    tokens = rng.integers(0, 96, (B, S)).astype(np.int32)
+    arrays = dict(k=kp, v=vp, ring_k=rk, ring_v=rv, page_table=table,
+                  pages_length=pages_len, length=length)
+    want, jnew = jl.llama_forward(
+        params, jcfg, input_ids=jnp.asarray(tokens),
+        kv_cache={k: jnp.asarray(a) for k, a in arrays.items()}, page_size=P, prefill=True)
+    with torch.inference_mode():
+        tcache = {k: torch.from_numpy(a.copy()) for k, a in arrays.items()}
+        got, tnew = model(input_ids=torch.from_numpy(tokens), kv_cache=tcache, prefill=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for key in ("ring_k", "ring_v"):
+        np.testing.assert_allclose(tnew[key].numpy(), np.asarray(jnew[key]), **TOL)
+    np.testing.assert_array_equal(tnew["length"].numpy(), np.asarray(jnew["length"]))
+
+
 def test_convert_roundtrip():
     _, params, model = _pair("apertus_like", seed=6)
     back = export_jax_params(model)
@@ -145,7 +177,7 @@ def test_unported_options_raise(option):
     cfg = tl.LlamaConfig(vocab_size=32, hidden_size=16, intermediate_size=32,
                          num_layers=1, num_heads=2, num_kv_heads=1, **option)
     with pytest.raises(NotImplementedError):
-        tl.Llama(cfg)
+        tl.Llama(cfg, device="cpu")
 
 
 def test_unported_cache_modes_raise():
@@ -154,9 +186,9 @@ def test_unported_cache_modes_raise():
         cache = tl.init_kv_cache(model.cfg, 1, 8)
         with pytest.raises(NotImplementedError, match="contiguous cache"):
             model(input_ids=torch.zeros((1, 1), dtype=torch.long), kv_cache=cache)
-        paged = tl.init_paged_kv_cache(model.cfg, 4, 8, 2, 1)
-        with pytest.raises(NotImplementedError, match="speculative"):
-            model(input_ids=torch.zeros((1, 2), dtype=torch.long), kv_cache=paged)
+        # a multi-token step against a contiguous cache is decode too
+        with pytest.raises(NotImplementedError, match="contiguous cache"):
+            model(input_ids=torch.zeros((1, 2), dtype=torch.long), kv_cache=cache)
 
 
 def test_paged_cache_layout_matches_jax():

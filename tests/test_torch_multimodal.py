@@ -19,7 +19,8 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 def _pair(seed=0):
     jmodel = jm.MultimodalModel(tiny_mm_config())
     params = perturbed(jmodel.init_params(jax.random.PRNGKey(seed)), seed=seed)
-    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()))
+    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()),
+                                device="cpu")
     load_jax_params(tmodel, params)
     return jmodel, params, tmodel
 
@@ -71,7 +72,7 @@ def test_resize_embeddings_matches_jax(new_vocab):
 
 def test_init_weights_is_seeded():
     cfg = tm.MultimodalConfig.from_dict(tiny_mm_config().to_dict())
-    a, b = tm.MultimodalModel(cfg), tm.MultimodalModel(cfg)
+    a, b = tm.MultimodalModel(cfg, device="cpu"), tm.MultimodalModel(cfg, device="cpu")
     a.init_weights(torch.Generator().manual_seed(7))
     b.init_weights(torch.Generator().manual_seed(7))
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):

@@ -1,6 +1,7 @@
-"""Port parity: the plain twins of K4 (ring decode attention) and K5 (ring
-fold) against the JAX Pallas kernels (interpret mode) and XLA references,
-f32, on the CPU. Cases follow tests/test_paged_attention.py."""
+"""Port parity: the plain twins of K4 (ring decode attention), K6 (ring
+verify attention) and K5 (ring fold) against the JAX Pallas kernels
+(interpret mode) and XLA references, f32, on the CPU. Cases follow
+tests/test_paged_attention.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,9 +14,14 @@ from multimeditron_tpu.ops.paged_attention import (
     fold_ring_into_pages_pallas,
     ring_decode_attention_pallas,
     ring_decode_attention_xla,
+    ring_verify_attention_pallas,
+    ring_verify_attention_xla,
 )
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# the verify twin against the JAX verify reference: the bound of the JAX
+# package's own verify tests (tests/test_paged_attention.py:328-329)
+VERIFY_TOL = dict(atol=2e-5, rtol=2e-5)
 
 
 def _ring_case(B, H, Hkv, D, P, pm, pages_len, gen, T=8, n_layers=2, seed=0,
@@ -87,6 +93,70 @@ def test_ring_twin_ignores_keys_past_the_valid_range():
     np.testing.assert_allclose(again.numpy(), base.numpy(), **TOL)
 
 
+def _verify_case(B, group, Hkv, D, P, pm, pages_len, gen, S, T=16, seed=0):
+    """A verify block of S query rows per head over the _ring_case pool;
+    gen[b] = lengths - pages_len, the ring row of the block's first query
+    (0 in the engine, which folds the ring after every verify step)."""
+    _, kp, vp, rk, rv, table, plen, lengths = _ring_case(
+        B, Hkv * group, Hkv, D, P, pm, pages_len, gen, T=T, seed=seed)
+    q = np.random.default_rng(seed + 100).normal(size=(B, Hkv * group, S, D)).astype(np.float32)
+    return q, kp, vp, rk, rv, table, plen, lengths
+
+
+@pytest.mark.parametrize("pages_len,gen", [
+    ([0, 5, 127, 256], [0, 0, 0, 0]),     # the JAX test cases: g = 0
+    ([384, 1, 0, 300], [0, 0, 0, 0]),
+    ([0, 5, 127, 256], [3, 0, 7, 1]),     # ring rows already in use: g > 0
+    ([0, 0, 0, 0], [0, 2, 0, 9]),         # no page keys at all
+])
+@pytest.mark.parametrize("group,S", [(2, 5), (4, 3), (1, 4)])
+def test_verify_twin_matches_xla(pages_len, gen, group, S):
+    case = _verify_case(len(pages_len), group, 2, 64, 128, 3, pages_len, gen, S)
+    got = tp.ring_verify_attention(*_torch(*case), 1)
+    want = ring_verify_attention_xla(*_jax(*case), jnp.int32(1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **VERIFY_TOL)
+    assert tp.launches["ring_verify_attention"] == 0  # CPU tensors take the twin
+
+
+@pytest.mark.parametrize("pages_len,gen", [
+    ([0, 5, 127, 256], [0, 0, 0, 0]),
+    ([512, 1, 0, 300], [0, 0, 0, 0]),
+    ([512, 130, 0, 256], [4, 1, 0, 2]),
+])
+@pytest.mark.parametrize("group,S,D", [(2, 5, 128), (4, 3, 128)])
+def test_verify_twin_matches_pallas(pages_len, gen, group, S, D):
+    case = _verify_case(len(pages_len), group, 2, D, 128, 4, pages_len, gen, S, seed=3)
+    got = tp.ring_verify_attention(*_torch(*case), 0)
+    want = ring_verify_attention_pallas(*_jax(*case), jnp.int32(0), interpret=True,
+                                        pages_group=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **VERIFY_TOL)
+
+
+def test_verify_twin_masks_ring_rows_per_query_row():
+    """Query row s sees ring rows <= g + s: changing ring row g + s + 1
+    leaves rows <= s unchanged and moves row s + 1; rows past the block are
+    never seen."""
+    g, S = [2, 0, 5], 4
+    case = _verify_case(3, 2, 2, 32, 16, 3, [5, 16, 0], g, S, seed=9)
+    base = tp.ring_verify_attention(*_torch(*case), 0).numpy()
+    q, kp, vp, rk, rv, table, plen, lengths = case
+    for s in range(S - 1):
+        rk2, rv2 = rk.copy(), rv.copy()
+        for b in range(3):
+            rk2[0, b, :, g[b] + s + 1] = 30.0
+            rv2[0, b, :, g[b] + s + 1] = -30.0
+        again = tp.ring_verify_attention(
+            *_torch(q, kp, vp, rk2, rv2, table, plen, lengths), 0).numpy()
+        np.testing.assert_allclose(again[:, :, :s + 1], base[:, :, :s + 1], **TOL)
+        assert not np.allclose(again[:, :, s + 1], base[:, :, s + 1])
+    rk2, rv2 = rk.copy(), rv.copy()
+    for b in range(3):
+        rk2[0, b, :, g[b] + S:] = 50.0
+        rv2[0, b, :, g[b] + S:] = -50.0
+    again = tp.ring_verify_attention(*_torch(q, kp, vp, rk2, rv2, table, plen, lengths), 0)
+    np.testing.assert_allclose(again.numpy(), base, **TOL)
+
+
 def test_fold_twin_roundtrip_matches_xla():
     """Ring rows land at pages_len + r of each slot; rows at positions >=
     lengths are not folded (they go to the trash page)."""
@@ -138,6 +208,10 @@ def test_wrappers_reject_bad_input():
         tp.ring_decode_attention(*case, 2)
     with pytest.raises(ValueError, match="q must be"):
         tp.ring_decode_attention(case[0][:, :3], *case[1:], 0)
+    with pytest.raises(ValueError, match="q must be"):
+        tp.ring_verify_attention(case[0], *case[1:], 0)  # (B, H, D) has no block axis
+    with pytest.raises(ValueError, match="layer_index"):
+        tp.ring_verify_attention(case[0][:, :, None], *case[1:], 2)
     q, kp, vp, rk, rv, table, plen, lengths = case
     with pytest.raises(ValueError, match="rows"):
         tp.fold_ring_into_pages(kp, vp, rk, rv, table, plen, 9, lengths)

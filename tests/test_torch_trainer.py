@@ -76,7 +76,8 @@ def jax_setup():
 
 
 def _port_model(jmodel, params):
-    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()))
+    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()),
+                                device="cpu")
     load_jax_params(tmodel, params)
     return tmodel
 
@@ -185,7 +186,7 @@ def test_schedule_matches_optax(warmup):
 def test_adam_state_dtypes_match_optax_for_bf16_params(tmp_path, moment_dtype):
     llm = TLlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
                        num_heads=2, num_kv_heads=1, dtype=torch.bfloat16)
-    model = tm.MultimodalModel(tm.MultimodalConfig(llm=llm))
+    model = tm.MultimodalModel(tm.MultimodalConfig(llm=llm), device="cpu")
     trainer = tt.MultimodalTrainer(model, tt.TrainerConfig(
         training_mode=Mode.FULL, adam_moment_dtype=moment_dtype,
         output_dir=str(tmp_path)))

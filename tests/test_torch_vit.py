@@ -40,7 +40,7 @@ def _vit_cfg(kind):
 
 def _port_vit(jcfg, params):
     cfg = ViTConfig(**{**dataclasses.asdict(jcfg), "dtype": torch.float32})
-    vit = ViT(cfg)
+    vit = ViT(cfg, device="cpu")
     load_jax_params(vit, params)
     return vit
 
@@ -60,7 +60,7 @@ def test_vit_matches_jax(kind, drop_cls):
 def test_projector_matches_jax():
     params = perturbed(jproj.init_mlp_projector(jax.random.PRNGKey(2), 32, 48, jnp.float32))
     x = np.random.default_rng(3).normal(size=(2, 5, 32)).astype(np.float32)
-    proj = MLPProjector(32, 48, dtype=torch.float32)
+    proj = MLPProjector(32, 48, dtype=torch.float32, device="cpu")
     load_jax_params(proj, params)
     with torch.inference_mode():
         got = proj(torch.from_numpy(x))
@@ -78,7 +78,7 @@ def test_image_modality_encode_matches_jax(wire):
         values = rng.integers(0, 256, (2, 16, 16, 3)).astype(np.uint8)
     else:
         values = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
-    tmod = TImageModality(TImageConfig(**dataclasses.asdict(jcfg)))
+    tmod = TImageModality(TImageConfig(**dataclasses.asdict(jcfg)), device="cpu")
     load_jax_params(tmod, params)
     with torch.inference_mode():
         got = tmod.encode(torch.from_numpy(values))
@@ -90,7 +90,7 @@ def test_convert_roundtrip_and_int8_refusal():
     jcfg = tiny_image_config()
     jmod = JImageModality(jcfg)
     params = perturbed(jmod.init_params(jax.random.PRNGKey(6)))
-    tmod = TImageModality(TImageConfig(**dataclasses.asdict(jcfg)))
+    tmod = TImageModality(TImageConfig(**dataclasses.asdict(jcfg)), device="cpu")
     load_jax_params(tmod, params)
     back = export_jax_params(tmod)
     assert jax.tree.structure(back) == jax.tree.structure(params)
