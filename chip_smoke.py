@@ -12,10 +12,15 @@ Phases, each of which raises on failure (non-zero exit):
 3. kernels: each kernel (K3 encoder attention and its gradient, K4 ring
    decode attention, K6 ring verify attention, K5 ring fold, K1 flash forward,
    K2a/K2b flash backward) against its plain PyTorch twin on the card, at the
-   main paths' shapes, in float32 and bfloat16, with CUDA-event timings, the
-   least time the card could take (bytes over 3.35 TB/s or FLOPs over the
-   dtype's peak, the larger) and, where one PyTorch call computes the same
-   function, that call's time;
+   main paths' shapes, in float32 and bfloat16; the W8A8 ViT kernels (K7a
+   ln_quant, K7g qkv_attn_int8, K7c oproj_ln_quant, K7d fc1_gelu_quant, K7e
+   fc2_res_ln_quant) at the ViT-L/14 serving shape (8 images, M = 2,056 rows)
+   and encode shape (256 images, M = 65,792). Each with CUDA-event timings
+   around the wrapper, its device time from torch.profiler (the kernels' own
+   CUDA time per call), the least time the card could take (bytes over 3.35
+   TB/s or operations over the type's peak, the larger) and, where one
+   PyTorch call computes the same function or a named part of it, that
+   call's time;
 4. serving end to end in float32: the serving engine on the card against the
    same engine and weights on the CPU: greedy tokens, speculative greedy
    (k = 2, 4) equal to plain greedy, speculative sampling (k = 2, 4) equal
@@ -27,7 +32,8 @@ Phases, each of which raises on failure (non-zero exit):
    run(); counts each kernel's launches in that run;
 6. training end to end in float32: 3 optimizer steps of MultimodalTrainer in
    ALIGNMENT and in FULL (remat, grad_accum=2) on the card against the CPU
-   (losses and updated parameters must agree);
+   (losses and updated parameters must agree); and ALIGNMENT with
+   quantize_frozen_towers (the fused int8 tower; losses within 1e-3);
 7. training at full width: the phase-5 model, ALIGNMENT (projector only,
    remat), one collated batch of 4 x 4096 tokens with 16 uint8 images,
    through MultimodalTrainer.train(): one warm-up step, then 3 timed steps;
@@ -36,7 +42,16 @@ Phases, each of which raises on failure (non-zero exit):
    8 slots: 3 requests of 512 tokens, a forked group of 4 over a 512-token
    prompt and a 1,000-token prompt that prefills in two chunks, each with
    one image and 64 new tokens, through submit(), submit_group() and run();
-   counts each kernel's launches in that run.
+   counts each kernel's launches in that run;
+9. int8 encode at full width (the JAX bench's encode leg): the phase-5
+   model's CLIP ViT-L/14 tower quantised with quantize_params(fused=True)
+   (calibrated on 16 uint8 images) and its projector with
+   quantize_mlp_projector; 8 batches of 256 uint8 224x224 images through the
+   uint8 wire normalisation, int8 tower + int8 projector against the bf16
+   tower + projector on the same images: img/s of each, calibration time,
+   cosine (fails below 0.99), each K7 kernel's launches;
+10. serving with the int8 tower: phase 5 again on the quantised model; the
+   K7 kernels launch and K3 does not.
 
 The last lines of standard output are JSON objects for the full-width runs,
 nvidia-smi's name and power limit, a JSON object describing each kernel,
@@ -64,6 +79,12 @@ from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalMo
 from multimeditron_torch.ops import encoder_attention as enc
 from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
+from multimeditron_torch.ops import vit_int8_fused as v8
+from multimeditron_torch.models.projector import (
+    mlp_projector_forward_int8,
+    mlp_projector_tree,
+    quantize_mlp_projector,
+)
 from multimeditron_torch.serve import prng
 from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
 from multimeditron_torch.train.trainer import MetricsLogger, MultimodalTrainer, TrainerConfig
@@ -75,9 +96,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max-abs, outputs of order 1
 GRAD_TOL = TOL
 LSE_TOL = 1e-3  # max-abs on the base-2 logsumexp (values of order 10)
 # H100 SXM peaks (NVIDIA's data sheet; dense): device memory and the rate of
-# each input type's arithmetic (bf16 on tensor cores, float32 on CUDA cores)
+# each input type's arithmetic (bf16 and int8 on tensor cores, float32 on CUDA
+# cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 KERNELS = {
     "encoder_attention": dict(
         module=enc, source="multimeditron_torch/csrc/encoder_attention.cu",
@@ -100,10 +122,28 @@ KERNELS = {
     "flash_attention_bwd_dkv": dict(
         module=fl, source="multimeditron_torch/csrc/flash_bwd.cu",
         replaces="multimeditron_tpu/ops/flash_attention.py:368"),
+    "ln_quant": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:105"),
+    "qkv_attn_int8": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_attention.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:217"),
+    "oproj_ln_quant": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:128"),
+    "fc1_gelu_quant": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_gemm.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:145"),
+    "fc2_res_ln_quant": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:166"),
 }
 SERVING = ("encoder_attention", "ring_decode_attention", "fold_ring_into_pages")
 SPEC_SERVING = ("encoder_attention", "ring_verify_attention", "fold_ring_into_pages")
 TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+INT8_TOWER = ("ln_quant", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
+              "fc2_res_ln_quant")
+INT8_SERVING = INT8_TOWER + ("ring_decode_attention", "fold_ring_into_pages")
 
 
 def log(msg: str) -> None:
@@ -119,12 +159,14 @@ def reset_launch_counts(names=tuple(KERNELS)) -> None:
         KERNELS[name]["module"].launches[name] = 0
 
 
-def bound(dtype, bytes_moved: float, flops: float) -> dict:
+def bound(dtype, bytes_moved: float, flops) -> dict:
     """The least time the card could take: each input byte read once and each
-    output byte written once at the memory rate, or the FLOPs at the peak of
-    the inputs' type, whichever is longer."""
+    output byte written once at the memory rate, or the operations at the
+    peak of their inputs' type, whichever is longer. ``flops`` is a count in
+    ``dtype`` or a {dtype: count} for work in several types."""
+    ops = flops if isinstance(flops, dict) else {dtype: flops}
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in ops.items()) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -142,6 +184,24 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device time of ``fn`` per call: the CUDA time of every kernel that the
+    calls launch, summed from a torch.profiler trace of ``n`` calls, over n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / n
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -198,6 +258,7 @@ def check_encoder_attention(dtype, gen) -> dict:
     qh, kh, vh = (x.view(B, S, H, Dh).transpose(1, 2).contiguous() for x in (q, k, v))
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: enc.encoder_attention(q, k, v, H)),
+                device_ms=device_ms(lambda: enc.encoder_attention(q, k, v, H)),
                 plain_ms=time_ms(lambda: enc.encoder_attention_plain(q, k, v, H, scale)),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
                 # q, k, v read and o written; QK^T and PV over every pair
@@ -240,6 +301,7 @@ def check_ring_decode(dtype, gen) -> dict:
     keys = int((c["lengths"] + 1).sum())  # pages + ring rows through this step's
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: paged.ring_decode_attention(*args)),
+                device_ms=device_ms(lambda: paged.ring_decode_attention(*args)),
                 plain_ms=time_ms(lambda: paged.ring_decode_attention_plain(*args)),
                 library_ms=None,  # no single PyTorch call gathers pages + ring
                 **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * c["q"].element_size(),
@@ -283,6 +345,7 @@ def check_ring_verify(dtype, gen) -> dict:
     pairs = int((c["lengths"] + 1).sum()) * S + B * S * (S - 1) // 2  # row s sees s more
     return dict(max_abs_err=max(errs),
                 ms=time_ms(lambda: paged.ring_verify_attention(*args)),
+                device_ms=device_ms(lambda: paged.ring_verify_attention(*args)),
                 plain_ms=time_ms(lambda: paged.ring_verify_attention_plain(*args)),
                 library_ms=None,  # no single PyTorch call gathers pages + ring
                 **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * S * D) * c["q"].element_size(),
@@ -309,6 +372,7 @@ def check_fold(dtype, gen) -> dict:
     moved = int((c["lengths"] - c["pages_len"]).clamp(0, rows).sum())  # rows per layer
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: paged.fold_ring_into_pages(kk, vk, *tail)),
+                device_ms=device_ms(lambda: paged.fold_ring_into_pages(kk, vk, *tail)),
                 plain_ms=time_ms(lambda: paged.fold_ring_into_pages_plain(kp, vp, *tail)),
                 library_ms=None,  # no single PyTorch call scatters by page table
                 # K and V ring rows read and written into their pages
@@ -390,6 +454,7 @@ def check_flash(dtype, gen) -> dict:
     return {
         "flash_attention_fwd": dict(
             max_abs_err=c["err_o"], ms=time_ms(lambda: fl._fwd_kernel(*fwd), n=10),
+            device_ms=device_ms(lambda: fl._fwd_kernel(*fwd), n=5),
             plain_ms=time_ms(lambda: fl.flash_attention_fwd_plain(*fwd[:-1]), n=10),
             library_ms=lib_fwd,
             **bound(dtype, (2 * big + 2 * small) * elt + rows, 4 * H * D * pairs)),
@@ -397,11 +462,13 @@ def check_flash(dtype, gen) -> dict:
         # their times stand beside each backward kernel
         "flash_attention_bwd_dq": dict(
             max_abs_err=c["err_dq"], ms=time_ms(lambda: fl._dq_kernel(*c["bwd"]), n=10),
+            device_ms=device_ms(lambda: fl._dq_kernel(*c["bwd"]), n=5),
             plain_ms=plain_bwd, library_ms=lib_bwd,
             **bound(dtype, (3 * big + 2 * small) * elt + rows + B * H * S * 4,
                     6 * H * D * pairs)),
         "flash_attention_bwd_dkv": dict(
             max_abs_err=c["err_dkv"], ms=time_ms(lambda: fl._dkv_kernel(*c["bwd"]), n=10),
+            device_ms=device_ms(lambda: fl._dkv_kernel(*c["bwd"]), n=5),
             plain_ms=plain_bwd, library_ms=lib_bwd,
             **bound(dtype, (2 * big + 4 * small) * elt + rows + B * H * S * 4,
                     8 * H * D * pairs)),
@@ -420,6 +487,133 @@ def time_sampler(gen) -> dict:
         return prng.categorical(sub, logits)
 
     return dict(threefry_ms=time_ms(sample), argmax_ms=time_ms(lambda: logits.argmax(dim=-1)))
+
+
+# ----------------------------------------------------------------------
+# Phase 3, K7: the W8A8 ViT kernels against their twins
+# ----------------------------------------------------------------------
+def check_int8(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """int8 outputs: equal on >= 99.5% of elements and never more than 1
+    apart (the LayerNorm and softmax sums run in another order than the
+    twin's); returns the max-abs error."""
+    torch.cuda.synchronize()
+    diff = (got.int() - want.int()).abs()
+    err, equal = diff.max().item(), (diff == 0).float().mean().item()
+    log(f"  {name}: max_abs_err={err} (tol 1), equal {equal:.6f} (tol 0.995)")
+    if not (err <= 1 and equal >= 0.995):
+        raise AssertionError(f"{name}: int8 output disagrees with the twin")
+    return float(err)
+
+
+def check_ulp(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Residual outputs: within one ulp of their dtype at their magnitude."""
+    torch.cuda.synchronize()
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))) * torch.finfo(want.dtype).eps
+    err = (got.float() - w).abs()
+    log(f"  {name}: max_abs_err={err.max().item():.3e}, within one ulp: "
+        f"{bool((err <= ulp).all())}")
+    if not (torch.isfinite(got).all() and (err <= ulp).all()):
+        raise AssertionError(f"{name}: residual output off by more than one ulp")
+    return err.max().item()
+
+
+def int8_case(gen, B: int) -> dict:
+    """ViT-L/14 layer inputs for B images (S = 257, D = 1024, F = 4096, 16
+    heads): int8 activations and weights ((N, K) layout), scales that put
+    every quantised value in range, a bf16 residual stream."""
+    S, D, FF, H = 257, 1024, 4096, 16
+    M = B * S
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def unif(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device="cuda")
+
+    def scale(n, k):
+        return unif(0.5, 1.5, n) / (127 * 60 * k ** 0.5)
+
+    sq = 2.5 / 127
+    return dict(
+        B=B, S=S, D=D, FF=FF, H=H, M=M,
+        x=(2 * torch.randn(M, D, generator=gen, device="cuda")).to(torch.bfloat16),
+        lnw=unif(0.5, 1.5, D), lnb=0.1 * torch.randn(D, generator=gen, device="cuda"),
+        xq=i8(B, S, D), wqkv=i8(3, D, D), wqkv_s=scale(3 * D, D),
+        qkv_b=0.1 * torch.randn(3 * D, generator=gen, device="cuda"),
+        scales6=[1.0, 1 / sq, 1 / sq, 6.0, sq * sq * 64 ** -0.5, 127 / 0.6],
+        o8=i8(M, D), wo=i8(D, D), wo_s=scale(D, D),
+        w1=i8(FF, D), w1_s=unif(0.5, 1.5, FF) / (127 * 40 * D ** 0.5),
+        h8=i8(M, FF), w2=i8(D, FF), w2_s=scale(D, FF),
+        bD=0.1 * torch.randn(D, generator=gen, device="cuda"),
+        bF=0.2 * torch.randn(FF, generator=gen, device="cuda"))
+
+
+def check_int8_kernels(gen, B: int) -> dict:
+    """K7a/g/c/d/e at B images against their twins; times, device times,
+    bounds and partial library yardsticks."""
+    c = int8_case(gen, B)
+    M, D, FF, S, H = c["M"], c["D"], c["FF"], c["S"], c["H"]
+    tag = f"B={B} M={M}"
+    n_plain = 20 if B <= 8 else 3
+    out = {}
+
+    def record(name, err, run, plain, library, note, nbytes, ops):
+        out[name] = dict(max_abs_err=err, ms=time_ms(run), device_ms=device_ms(run),
+                         plain_ms=time_ms(plain, n=n_plain, warmup=1),
+                         library_ms=time_ms(library), library_note=note,
+                         **bound(torch.int8, nbytes, ops))
+
+    # K7a
+    inv = v8.f32_inv(0.03)
+    run = lambda: v8.ln_quant(c["x"], c["lnw"], c["lnb"], 0.03, 1e-5)  # noqa: E731
+    plain = lambda: v8.ln_quant_plain(c["x"], c["lnw"], c["lnb"], inv, 1e-5)  # noqa: E731
+    record("ln_quant", check_int8(f"K7a {tag}", run(), plain()), run, plain,
+           lambda: F.layer_norm(c["x"], (D,), c["lnw"].bfloat16(), c["lnb"].bfloat16()),
+           "partial: F.layer_norm, no quantisation", 3 * M * D + 8 * D, 0)
+
+    # K7g
+    g_args = (c["xq"], c["wqkv"], c["wqkv_s"], c["qkv_b"], c["scales6"], H, S)
+    run = lambda: v8.qkv_attn_int8(*g_args)  # noqa: E731
+    plain = lambda: v8.qkv_attn_int8_plain(*g_args)  # noqa: E731
+    err = check_int8(f"K7g {tag}", run(), plain())
+    qh, kh, vh = (torch.randn(B, H, S, 64, generator=gen, device="cuda", dtype=torch.bfloat16)
+                  for _ in range(3))
+    record("qkv_attn_int8", err, run, plain,
+           lambda: F.scaled_dot_product_attention(qh, kh, vh),
+           "partial: SDPA on bf16 q/k/v, the attention alone", 2 * M * D + 3 * D * D + 24 * D,
+           {torch.int8: 2 * M * D * 3 * D + 2 * B * H * S * S * 64,
+            torch.bfloat16: 2 * B * H * S * S * 64})
+
+    # K7c, K7e
+    for name, a8, w, ws, K in (("oproj_ln_quant", c["o8"], c["wo"], c["wo_s"], D),
+                               ("fc2_res_ln_quant", c["h8"], c["w2"], c["w2_s"], FF)):
+        args = (a8, c["x"], w, ws, c["bD"], c["lnw"], c["lnb"], 1.3, 0.025, 1e-5)
+        fn = getattr(v8, name)
+        run = lambda fn=fn, args=args: fn(*args)  # noqa: E731
+        plain = lambda args=args: v8.res_ln_quant_plain(  # noqa: E731
+            *args[:8], v8.f32_inv(args[8]), args[9])
+        (xo, xq), (xo_ref, xq_ref) = run(), plain()
+        check_ulp(f"{name} x' {tag}", xo, xo_ref)
+        err = check_int8(f"{name} xq {tag}", xq, xq_ref)
+        wt = w.t()
+        record(name, err, run, plain, lambda a8=a8, wt=wt: torch._int_mm(a8, wt),
+               "partial: torch._int_mm, the int8 product alone",
+               M * K + D * K + 2 * 2 * M * D + M * D + 16 * D, 2 * M * K * D)
+
+    # K7d
+    args = (c["o8"], c["w1"], c["w1_s"], c["bF"], 1.1, 0.04, "quick_gelu_approx")
+    run = lambda: v8.fc1_gelu_quant(*args)  # noqa: E731
+    plain = lambda: v8.fc1_gelu_quant_plain(*args[:5], v8.f32_inv(0.04), args[6])  # noqa: E731
+    w1t = c["w1"].t()
+    record("fc1_gelu_quant", check_int8(f"K7d {tag}", run(), plain()), run, plain,
+           lambda: torch._int_mm(c["o8"], w1t), "partial: torch._int_mm, the int8 product alone",
+           M * D + FF * D + M * FF + 8 * FF, 2 * M * D * FF)
+    for name, r in out.items():
+        log(f"  {name} {tag}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"library {r['library_ms']:.4f} ms ({r['library_note']})")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -526,7 +720,9 @@ def full_width_model() -> MultimodalModel:
     return model
 
 
-def run_full_width(model: MultimodalModel) -> dict:
+def run_full_width(model: MultimodalModel, int8_tower: bool = False) -> dict:
+    """Phase 5 (float tower: K3) or, with ``int8_tower``, phase 10 (the
+    fused int8 tower: K7, and no K3)."""
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=640, prefill_buckets=(512,), page_size=128,
         decode_chunk=8, temperature=0.7))
@@ -551,7 +747,7 @@ def run_full_width(model: MultimodalModel) -> dict:
     reqs = [engine.submit(b, max_new_tokens=64) for b in batches]
     engine.run()
     wall = time.time() - t0
-    counts = launch_counts()
+    counts = launch_counts(INT8_SERVING + ("encoder_attention",) if int8_tower else SERVING)
     work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=engine.n_decode_steps,
                 decode_chunks=engine.n_decode_chunks)
     log(f"  launches: {counts}; work: {work}")
@@ -562,7 +758,15 @@ def run_full_width(model: MultimodalModel) -> dict:
                                  f"{len(r.tokens)} tokens")
         if not all(0 <= t < vocab for t in r.tokens):
             raise AssertionError(f"request {r.request_id}: token outside the vocab")
-    if counts["encoder_attention"] < 24 * work["prefill_calls"]:
+    if int8_tower:
+        if counts.pop("encoder_attention"):
+            raise AssertionError("K3 launched although the tower is int8")
+        if counts["ln_quant"] < work["prefill_calls"]:
+            raise AssertionError("K7a launched fewer times than there were prefill calls")
+        for name in INT8_TOWER[1:]:
+            if counts[name] < 24 * work["prefill_calls"]:
+                raise AssertionError(f"{name} launched fewer than 24 times per prefill call")
+    elif counts["encoder_attention"] < 24 * work["prefill_calls"]:
         raise AssertionError("K3 launched fewer than 24 times per prefill call")
     if counts["ring_decode_attention"] < 32 * work["decode_steps"]:
         raise AssertionError("K4 launched fewer than 32 times per decode step")
@@ -591,14 +795,15 @@ def run_full_width(model: MultimodalModel) -> dict:
     decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
     out = dict(
         ttft_p50_ms=statistics.median(ttfts) * 1000,
+        ttft_p95_ms=float(np.percentile(ttfts, 95)) * 1000,
         ttft_max_ms=ttfts[-1] * 1000,
         decode_tok_per_s=decode_tokens / (last - first),
         wall_s=wall,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         tokens=sum(len(r.tokens) for r in reqs),
         launches=counts, **work)
-    log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s "
-        f"over {work['decode_steps']} steps, peak memory "
+    log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, p95 {out['ttft_p95_ms']:.1f} ms, decode "
+        f"{out['decode_tok_per_s']:.1f} tok/s over {work['decode_steps']} steps, peak memory "
         f"{out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
     return out
 
@@ -770,6 +975,38 @@ def check_train_f32_card_vs_cpu() -> None:
             raise AssertionError(f"f32 trainer on the card disagrees with the CPU ({mode.value})")
         if not all(counts.values()):
             raise AssertionError(f"a kernel was not launched by the f32 trainer: {counts}")
+    check_train_int8_tower_card_vs_cpu(batches)
+
+
+def check_train_int8_tower_card_vs_cpu(batches) -> None:
+    """ALIGNMENT with quantize_frozen_towers, 3 optimizer steps, card against
+    CPU: losses within 1e-3 relative (single int8 rounding flips between the
+    kernels and the twins are allowed), the projector moves and the master
+    tower's parameters do not."""
+    cpu_model, gpu_model = small_f32_models()
+    tower = {n: p.detach().clone()
+             for n, p in gpu_model.modalities["image"].embedder.named_parameters()}
+    start = cpu_model.modalities["image"].projector.fc1.weight.detach().clone()
+    steps = [batches[i % 2] for i in range(3)]
+    cfg = dict(training_mode=TrainingMode.ALIGNMENT, remat=False, quantize_frozen_towers=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        card, card_log = train(gpu_model, steps, len(steps), tmp, **cfg)
+        counts = launch_counts(INT8_TOWER + ("encoder_attention",))
+        cpu, cpu_log = train(cpu_model, steps, len(steps), tmp, **cfg)
+    card_loss = np.array([r["loss"] for r in card_log])
+    cpu_loss = np.array([r["loss"] for r in cpu_log])
+    loss_err = float(np.max(np.abs(card_loss - cpu_loss) / np.abs(cpu_loss)))
+    moved = (gpu_model.modalities["image"].projector.fc1.weight.detach().cpu() - start).abs().max()
+    kept = all(torch.equal(p, tower[n])
+               for n, p in gpu_model.modalities["image"].embedder.named_parameters())
+    log(f"  alignment, quantize_frozen_towers: card losses {card_loss.round(6).tolist()}, "
+        f"relative error {loss_err:.2e} (tol 1e-3); projector moved {moved.item():.2e}; "
+        f"master tower unchanged {kept}; launches {counts}")
+    if not (loss_err <= 1e-3 and moved.item() > 1e-3 and kept):
+        raise AssertionError("f32 int8-tower trainer on the card disagrees with the CPU")
+    if not all(counts[n] for n in INT8_TOWER):
+        raise AssertionError(f"a K7 kernel was not launched by the int8-tower trainer: {counts}")
 
 
 def run_train_full_width(model: MultimodalModel) -> dict:
@@ -833,6 +1070,102 @@ def run_train_full_width(model: MultimodalModel) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 9: int8 encode at full width
+# ----------------------------------------------------------------------
+def busy_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall, device busy share (the
+    union of kernel intervals over the wall) and the device time by kernel
+    family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            key = name.split("<")[0].split("(")[0].strip()[-48:]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return dict(wall_ms=wall_us / 1e3, busy_share=busy / wall_us, top_kernels_ms=top)
+
+
+def run_int8_encode(model: MultimodalModel, n_batches: int = 8, batch: int = 256) -> dict:
+    """The JAX bench's encode leg on the port: uint8 224x224 images -> the
+    fused int8 ViT-L/14 -> the int8 projector, against the bf16 tower and
+    projector on the same images."""
+    mod = model.modalities["image"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def images(n):
+        return torch.randint(0, 256, (n, 224, 224, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    calib = images(16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.quantize_params(calib, fused=True)
+    qproj = quantize_mlp_projector(mlp_projector_tree(mod.projector))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    tower_q = mod.embedder_q
+    batches = [images(batch) for _ in range(n_batches)]
+
+    def int8(x):
+        return mlp_projector_forward_int8(qproj, tower_q(mod._normalize_wire(x), drop_cls=True))
+
+    def bf16(x):
+        return mod.projector(mod.embedder(mod._normalize_wire(x), drop_cls=True))
+
+    def rate(fn):
+        fn(batches[0])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in batches:
+            fn(x)
+        torch.cuda.synchronize()
+        return n_batches * batch / (time.perf_counter() - t0)
+
+    with torch.inference_mode():
+        reset_launch_counts()
+        int8_rate = rate(int8)
+        counts = launch_counts(INT8_TOWER + ("encoder_attention",))
+        bf16_rate = rate(bf16)
+        a, b = int8(batches[0]).float(), bf16(batches[0]).float()
+        cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+        tok_cos = F.cosine_similarity(a, b, dim=-1).mean().item()
+        prof_int8 = busy_profile(lambda: int8(batches[1]))
+        prof_bf16 = busy_profile(lambda: bf16(batches[1]))
+    counts_ok = (counts["ln_quant"] == n_batches + 1 and counts["encoder_attention"] == 0
+                 and all(counts[n] == 24 * (n_batches + 1) for n in INT8_TOWER[1:]))
+    log(f"  calibration + packing {calib_s:.2f} s; int8 {int8_rate:.1f} img/s, bf16 "
+        f"{bf16_rate:.1f} img/s ({n_batches} batches of {batch} each, after a warm-up batch); "
+        f"cosine int8 vs bf16 {cos:.6f} (per token mean {tok_cos:.6f}); launches over the "
+        f"{n_batches + 1} int8 batches {counts}")
+    log(f"  one int8 batch: {prof_int8}")
+    log(f"  one bf16 batch: {prof_bf16}")
+    if a.shape != (batch, 256, 4096) or not torch.isfinite(a).all():
+        raise AssertionError(f"int8 encode output {tuple(a.shape)} not finite/shaped")
+    if not cos >= 0.99:
+        raise AssertionError(f"int8 encode cosine {cos} against bf16 below 0.99")
+    if not counts_ok:
+        raise AssertionError(f"K7 launches are not 1 (K7a) and 24 (others) per batch: {counts}")
+    return dict(int8_img_per_s=int8_rate, bf16_img_per_s=bf16_rate, calibration_s=calib_s,
+                cosine=cos, token_cosine_mean=tok_cos, batches=n_batches, batch=batch,
+                profile_int8=prof_int8, profile_bf16=prof_bf16, launches=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -871,6 +1204,13 @@ def main() -> int:
                     f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}), library call {lib}")
         results.update(res)  # the bf16 numbers, the full-width paths' dtype
+    for B, shape in ((8, "serving"), (256, "encode")):
+        res = check_int8_kernels(gen, B)
+        for name, r in res.items():
+            results.setdefault(name, {})[shape] = r
+        torch.cuda.empty_cache()
+    for name in INT8_TOWER:  # the encode shape's numbers head each entry
+        results[name] = {**results[name]["encode"], "serving_shape": results[name]["serving"]}
     sampler = time_sampler(gen)
     log(f"  sampling (8, 128256) f32: threefry categorical {sampler['threefry_ms']:.4f} ms, "
         f"argmax {sampler['argmax_ms']:.4f} ms")
@@ -900,10 +1240,22 @@ def main() -> int:
     log("[8] full width speculative serving: k = 4, greedy, 8 slots, forked group, "
         "chunked prompt")
     spec = run_spec_full_width(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[9] full width int8 encode: CLIP ViT-L/14 fused W8A8 + int8 projector, 8 x 256 "
+        "uint8 images, against bf16")
+    encode = run_int8_encode(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[10] full width serving with the int8 tower: phase 5 on the quantised model")
+    full_int8 = run_full_width(model, int8_tower=True)
 
     # each kernel's launches in the full-width run of its path
     launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
-                "ring_verify_attention": spec["launches"]["ring_verify_attention"]}
+                "ring_verify_attention": spec["launches"]["ring_verify_attention"],
+                **{n: encode["launches"][n] for n in INT8_TOWER}}
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
@@ -911,6 +1263,8 @@ def main() -> int:
                                      "sampler_ms": sampler}}))
     print(json.dumps({"train_full_width": trained}))
     print(json.dumps({"spec_full_width": spec}))
+    print(json.dumps({"int8_encode": encode}))
+    print(json.dumps({"full_width_int8_tower": {k: v for k, v in full_int8.items()}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ continuous-batching engine with speculative decoding, forked groups,
 chunked prefill and staggered admission — and the SFT training path: the
 training forward with per-layer remat and the flash attention kernels, the
 loss, staged freezing and the masked AdamW trainer with checkpoints and a
-data loader.
+data loader — and the W8A8 image tower: the fused int8 ViT kernels (K7),
+the unfused int8 tower, the int8 projector, the image modality's
+``quantize_params`` and the trainer's ``quantize_frozen_towers``.
 
 This package imports ``torch`` and ``numpy``, and nothing of the JAX
 package: the framework-free modules it needs from there

@@ -67,6 +67,18 @@ SIGNATURES = {
     # q, k, v, dout, lse, di, kv_mask (or NULL), dk, dv, then as the forward
     "mmt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # x, ln_w, ln_b, out, M, D, eps, inv_s, dtype, stream
+    "mmt_int8_ln_quant": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+    # a, w, ws, bias, x_res, ln_w, ln_b, x_out, xq, M, K, D, s, inv_s, eps,
+    # dtype, stream
+    "mmt_int8_res_ln_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _F, _F, _F, _I, _P),
+    # a, w, ws, bias, out, M, K, N, s, inv_s, act, stream
+    "mmt_int8_fc1_act_quant": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    # a, w, ws, bias, q8, k8, v, M, K, D, s0, inv_q, inv_k, stream
+    "mmt_int8_qkv_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+    # q8, k8, v, o, B, S, H, dh, kv_len, a, shift, inv_s1, stream
+    "mmt_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,7 +7,13 @@ and ``nn.Linear`` weights as (out, in). :func:`load_jax_params` unstacks and
 transposes into a module; :func:`export_jax_params` does the reverse (as
 float32 numpy arrays when the module is bf16).
 
-Quantized (int8) trees are refused: the int8 paths are not ported yet.
+An image modality's W8A8 tower trees load too, fused (``wqkv_q``, ...,
+``act_scales`` beside the embedder) and unfused (``q_proj_q`` / ``_s``, ...):
+they become the modality's ``embedder_q`` (``ViTInt8Fused`` or ``ViTInt8``),
+with int8 matrices transposed to the port's (N, K) layout and every other
+leaf as it is; the float tower keeps its parameters. ``export_jax_params``
+writes such a modality's int8 tower back. Int8 LLM trees (``quantize_llm``)
+are refused.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from multimeditron_torch.models.llama import Llama
 from multimeditron_torch.models.multimodal import MultimodalModel
 from multimeditron_torch.models.projector import MLPProjector
 from multimeditron_torch.models.vit import ViT
+from multimeditron_torch.models.vit_quant import ViTInt8
+from multimeditron_torch.ops.vit_int8_fused import ViTInt8Fused
 
 # JAX leaf name -> (port parameter name, transpose)
 _LLAMA_TOP = {
@@ -122,17 +130,65 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def _image_modalities(module: nn.Module) -> Dict[Tuple[str, ...], ImageModality]:
+    """JAX path prefix -> each image modality of ``module``."""
+    if isinstance(module, ImageModality):
+        return {(): module}
+    if isinstance(module, MultimodalModel):
+        return {("modalities", m): mod for m, mod in module.modalities.items()
+                if isinstance(mod, ImageModality)}
+    return {}
+
+
+def _int8_tower(mod: ImageModality, sub: Dict):
+    """The W8A8 tower a modality subtree holds, or None for a float tower."""
+    emb = sub.get("embedder", {})
+    device = mod.pixel_mean.device
+
+    def tensors(tree):
+        # on the modality's device; int8 matrices JAX (..., K, N) -> port (..., N, K)
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = tensors(v)
+                continue
+            v = np.asarray(v)
+            out[k] = _to_torch(np.swapaxes(v, -1, -2) if v.dtype == np.int8 else v).to(device)
+        return out
+
+    scales = sub.get("act_scales")
+    scales = None if scales is None else _to_torch(scales).to(device)
+    if "wqkv_q" in emb:
+        return ViTInt8Fused(mod.vit_cfg, tensors(emb), scales)
+    if "q_proj_q" in emb.get("layers", {}):
+        return ViTInt8(mod.vit_cfg, tensors(emb), scales)
+    return None
+
+
 def load_jax_params(module: nn.Module, tree: Dict) -> None:
     """Copy a JAX parameter tree (numpy leaves) into ``module`` in place."""
-    quantized = [p for p, _ in _leaves(tree)
-                 if p[-1].endswith("_q") or "act_scales" in p]
+    towers = {}
+    for prefix, mod in _image_modalities(module).items():
+        sub = tree
+        for key in prefix:
+            sub = sub.get(key, {})
+        q = _int8_tower(mod, sub)
+        if q is not None:
+            towers[prefix] = (mod, q)
+    leaves = dict(_leaves(tree))
+    tower_paths = {p for p in leaves for prefix in towers
+                   if p[:len(prefix) + 1] in (prefix + ("embedder",), prefix + ("act_scales",))}
+    quantized = [p for p in leaves if p not in tower_paths
+                 and (p[-1].endswith("_q") or "act_scales" in p)]
     if quantized:
         raise NotImplementedError(
-            f"int8 parameter trees (e.g. {'/'.join(quantized[0])}) are not ported "
-            "yet (ROADMAP queue 1, quantized paths)")
-    leaves = dict(_leaves(tree))
-    state, used = {}, set()
+            f"int8 LLM trees (e.g. {'/'.join(quantized[0])}, quantize_llm) are not ported "
+            "yet (ROADMAP queue 1 item 6, quantized paths)")
+    kept = tuple(_tower_name(prefix) for prefix in towers)
+    state, used = {}, set(tower_paths)
     for path, name, transpose, layer in _entries(module):
+        if name.startswith(kept):
+            continue  # the float tower of a modality loaded as int8 keeps its parameters
         if path not in leaves:
             raise KeyError(f"JAX tree has no {'/'.join(path)} for {name}")
         arr = leaves[path] if layer is None else leaves[path][layer]
@@ -142,15 +198,29 @@ def load_jax_params(module: nn.Module, tree: Dict) -> None:
     unused = sorted("/".join(p) for p in leaves if p not in used)
     if unused:
         raise KeyError(f"JAX tree leaves with no place in {type(module).__name__}: {unused}")
-    module.load_state_dict(state, strict=True)
+    missing, unexpected = module.load_state_dict(state, strict=False)
+    missing = [n for n in missing if not n.startswith(kept)]
+    if missing or unexpected:
+        raise KeyError(f"state dict mismatch: missing {missing}, unexpected {unexpected}")
+    for mod, q in towers.values():
+        mod.embedder_q = q
+
+
+def _tower_name(prefix: Tuple[str, ...]) -> str:
+    """Parameter-name prefix of the float tower of the modality at ``prefix``."""
+    return "".join(f"{k}." for k in prefix) + "embedder."
 
 
 def export_jax_params(module: nn.Module) -> Dict:
     """The reverse of :func:`load_jax_params`: a JAX-layout tree of numpy
-    arrays (bf16 parameters come out as float32)."""
+    arrays (bf16 parameters come out as float32). A modality with an int8
+    tower (``embedder_q``) exports that tower, as its JAX tree holds it."""
     params = dict(module.named_parameters())
     stacked: Dict[Tuple[str, ...], list] = {}
     tree: Dict = {}
+    towers = {p: m.embedder_q for p, m in _image_modalities(module).items()
+              if m.embedder_q is not None}
+    skip = tuple(_tower_name(prefix) for prefix in towers)
 
     def put(path, value):
         node = tree
@@ -158,16 +228,25 @@ def export_jax_params(module: nn.Module) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = value
 
+    def numpy(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().contiguous().numpy()
+
     for path, name, transpose, layer in _entries(module):
+        if name.startswith(skip):
+            continue
         t = params[name].detach()
-        t = t.T if transpose else t
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        arr = t.cpu().contiguous().numpy()
+        arr = numpy(t.T if transpose else t)
         if layer is None:
             put(path, arr)
         else:
             stacked.setdefault(path, []).append(arr)
     for path, arrs in stacked.items():
         put(path, np.stack(arrs))
+    for prefix, q in towers.items():
+        for path, t in _leaves(q.tree()):
+            put(prefix + ("embedder",) + path,
+                numpy(t.transpose(-1, -2) if t.dtype == torch.int8 else t))
+        if q.act_scales is not None:
+            put(prefix + ("act_scales",), numpy(q.act_scales))
     return tree

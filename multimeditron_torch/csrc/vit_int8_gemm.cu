@@ -1,0 +1,178 @@
+// K7d and the projection half of K7g: tiled int8 GEMMs with a per-column
+// epilogue, for the fused W8A8 ViT tower.
+//
+// Replaces, in multimeditron_tpu/ops/vit_int8_fused.py:
+// - `_fc1_kernel` (:145, reached through `fc1_gelu_quant` :588): hq =
+//   quant(act(acc * (ws * s2) + b), 1 / s3), written int8 (M, N);
+// - the projection of `_qkv_attn_kernel` (:217, reached through
+//   `qkv_attn_int8` :767): q8 = quant(acc * (ws * s0) + b, 1 / sq), k8 the
+//   same with 1 / sk, and v in bf16; vit_int8_attention.cu then attends.
+//
+// What bounds it on the H100: operations. fc1 at the ViT-L/14 encode shape
+// (M = 256 x 257 = 65,792, K = 1024, N = 4096) is 5.5e11 int8 operations, 0.28
+// ms at 1,979 TOPS, against 0.37 GB of traffic (0.11 ms); the QKV projection
+// (N = 3072) is 0.21 ms of operations.
+//
+// The design: one block of 8 warps per 128 x 128 output tile, each warp a
+// 64 x 32 sub-tile of 4 x 4 mma.sync m16n8k32 accumulators fed by
+// ldmatrix; K streams through four cp.async stages of 64 bytes (80 KB, two
+// blocks an SM; int8_mma.cuh). The int32 accumulators
+// never leave registers: the epilogue dequantises, adds the bias, applies the
+// activation and quantises in place, so only int8 (or v's bf16) is written;
+// each thread reads its 8 columns' scales and biases once. At the encode
+// shape the K loop alone takes 1.29 ms of K7d's ~2.1 ms and the exact
+// activation (exp2f, IEEE division: no approximate intrinsics, to round as
+// the reference rounds) most of the rest.
+// Blocks walk the output columns fastest, so the blocks in flight share one
+// 128-row activation tile and the whole weight stays in L2 (4 MB at most).
+// The TPU kernel's split of N into 2,048-wide blocks (VMEM pressure of the
+// f32 pre-activation) and its weight-outer grid order have no counterpart:
+// the pre-activation lives in registers. wgmma, TMA and a persistent schedule
+// are later work.
+#include "int8_mma.cuh"
+
+namespace {
+
+using namespace mmt::i8;
+
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
+constexpr int kStages = 4;
+constexpr int kSmem = kStages * (kBM + kBN) * kLd;  // 80 KB: two blocks an SM
+
+// The activations of `_fc1_kernel`, in the Pallas kernel's order of operations.
+__device__ __forceinline__ float activate(float g, int act) {
+  switch (act) {
+    case 0: {  // quick_gelu_approx: g / bf16(1 + 2^(-1.702 log2(e) g))
+      const float e = exp2f(__fmul_rn(-2.4554396102104056f, g));
+      return __fmul_rn(g, __fdiv_rn(1.f, bf16_round(__fadd_rn(1.f, e))));
+    }
+    case 1: {  // quick_gelu: g * sigmoid(1.702 g)
+      const float z = __fmul_rn(1.702f, g);
+      return __fmul_rn(g, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z))));
+    }
+    case 2: {  // gelu_pytorch_tanh / gelu_new: g * (0.5 (1 + tanh(c (g + 0.044715 g^3))))
+      const float g3 = __fmul_rn(__fmul_rn(g, g), g);
+      const float inner = __fmul_rn(0.7978845608028654f, fmaf(0.044715f, g3, g));
+      return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
+    }
+    default:  // gelu: 0.5 g erfc(-g / sqrt(2))
+      return __fmul_rn(__fmul_rn(0.5f, g), erfcf(__fmul_rn(-g, 0.7071067811865476f)));
+  }
+}
+
+// An epilogue gives each output column pair its dequantisation scale
+// (ws * s) and bias once per thread (scale, shift), then finishes and stores
+// two adjacent outputs of a row from their int32 accumulators (put).
+struct Fc1Epilogue {
+  const float* ws;
+  const float* bias;
+  int8_t* out;
+  int N;
+  float s, inv_s;
+  int act;
+
+  __device__ __forceinline__ float2 scale(int col) const {
+    return make_float2(__fmul_rn(ws[col], s), __fmul_rn(ws[col + 1], s));
+  }
+  __device__ __forceinline__ float2 shift(int col) const { return make_float2(bias[col], bias[col + 1]); }
+  __device__ __forceinline__ void put(int row, int col, int a0, int a1, float2 sc, float2 b) const {
+    char2 q;
+    q.x = quant(activate(fmaf(static_cast<float>(a0), sc.x, b.x), act), inv_s);
+    q.y = quant(activate(fmaf(static_cast<float>(a1), sc.y, b.y), act), inv_s);
+    *reinterpret_cast<char2*>(out + size_t(row) * N + col) = q;
+  }
+};
+
+struct QkvEpilogue {
+  const float* ws;    // (3, D)
+  const float* bias;  // (3, D)
+  int8_t* q8;
+  int8_t* k8;
+  __nv_bfloat16* v;
+  int D;
+  float s0, inv_q, inv_k;
+
+  __device__ __forceinline__ float2 scale(int col) const {
+    return make_float2(__fmul_rn(ws[col], s0), __fmul_rn(ws[col + 1], s0));
+  }
+  __device__ __forceinline__ float2 shift(int col) const { return make_float2(bias[col], bias[col + 1]); }
+  __device__ __forceinline__ void put(int row, int col, int a0, int a1, float2 sc, float2 b) const {
+    const int j = col / D, c = col - j * D;
+    const float x0 = fmaf(static_cast<float>(a0), sc.x, b.x);
+    const float x1 = fmaf(static_cast<float>(a1), sc.y, b.y);
+    const size_t at = size_t(row) * D + c;
+    if (j == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(v + at) = __floats2bfloat162_rn(x0, x1);
+    } else {
+      const float inv = j == 0 ? inv_q : inv_k;
+      char2 q;
+      q.x = quant(x0, inv);
+      q.y = quant(x1, inv);
+      *reinterpret_cast<char2*>((j == 0 ? q8 : k8) + at) = q;
+    }
+  }
+};
+
+template <class Epilogue>
+__global__ void __launch_bounds__(kThreads)
+int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N, int K,
+                 Epilogue epi) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int warp = threadIdx.x / mmt::kWarpSize, lane = threadIdx.x % mmt::kWarpSize;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int wm0 = (warp / 4) * 64, wn0 = (warp % 4) * 32;
+  int acc[4][4][4];
+  gemm_mainloop<kBM, kBN, 4, 4, kThreads, kStages>(acc, smem, A, B, M, N, K, m0, n0, wm0, wn0, lane);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn0 + 8 * j + 2 * t;
+    const float2 sc = epi.scale(col), b = epi.shift(col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + wm0 + 16 * i + g;
+      if (row < M) epi.put(row, col, acc[i][j][0], acc[i][j][1], sc, b);
+      if (row + 8 < M) epi.put(row + 8, col, acc[i][j][2], acc[i][j][3], sc, b);
+    }
+  }
+}
+
+template <class Epilogue>
+int launch(const void* a, const void* w, int M, int N, int K, const Epilogue& epi,
+           cudaStream_t stream) {
+  if (M < 1 || K % kBK != 0 || N % kBN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<Epilogue>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
+  int8_gemm_kernel<Epilogue><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), M, N, K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a (M, K) int8, w (N, K) int8, ws / bias (N,) float -> out (M, N) int8.
+// act: 0 quick_gelu_approx, 1 quick_gelu, 2 gelu_pytorch_tanh, 3 gelu.
+extern "C" int mmt_int8_fc1_act_quant(const void* a, const void* w, const void* ws,
+                                      const void* bias, void* out, int M, int K, int N, float s,
+                                      float inv_s, int act, void* stream) {
+  if (act < 0 || act > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const Fc1Epilogue epi{static_cast<const float*>(ws), static_cast<const float*>(bias),
+                        static_cast<int8_t*>(out), N, s, inv_s, act};
+  return launch(a, w, M, N, K, epi, static_cast<cudaStream_t>(stream));
+}
+
+// a (M, K) int8, w (3 D, K) int8 (q, k, v rows), ws / bias (3 D,) float ->
+// q8, k8 (M, D) int8 and v (M, D) bf16.
+extern "C" int mmt_int8_qkv_project(const void* a, const void* w, const void* ws,
+                                    const void* bias, void* q8, void* k8, void* v, int M, int K,
+                                    int D, float s0, float inv_q, float inv_k, void* stream) {
+  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const QkvEpilogue epi{static_cast<const float*>(ws), static_cast<const float*>(bias),
+                        static_cast<int8_t*>(q8), static_cast<int8_t*>(k8),
+                        static_cast<__nv_bfloat16*>(v), D, s0, inv_q, inv_k};
+  return launch(a, w, M, 3 * D, K, epi, static_cast<cudaStream_t>(stream));
+}

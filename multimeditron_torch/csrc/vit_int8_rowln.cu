@@ -1,0 +1,247 @@
+// K7a, K7c and K7e: the W8A8 ViT kernels that end in a LayerNorm of a whole
+// row, quantised to int8 for the next product.
+//
+// Replaces, in multimeditron_tpu/ops/vit_int8_fused.py:
+// - `_ln_quant_kernel` (:105, via `ln_quant` :501): xq = quant(LN(x), 1 / s);
+// - `_oproj_ln_kernel` (:128, via `oproj_ln_quant` :556) and `_fc2_ln_kernel`
+//   (:166, via `fc2_res_ln_quant` :639), which have one body: x' = acc *
+//   (ws * s) + b + x_res, written in the residual's dtype, and
+//   xq = quant(LN(x'), 1 / s_next). K7c's A operand is K7g's int8 output, and
+//   K7e's LayerNorm is the NEXT layer's ln1, so no separate ln_quant runs
+//   after layer 0.
+//
+// What bounds it on the H100: K7a by bytes (one read of x, one int8 write).
+// K7c (K = 1024) and K7e (K = 4096) by operations: at the ViT-L/14 encode
+// shape fc2 is 5.5e11 int8 operations (0.28 ms at 1,979 TOPS) against
+// 0.48 GB of traffic (0.14 ms); the o-projection's 1.4e11 operations (0.07
+// ms) sit below its 0.40 GB (0.12 ms), so it is bound by bytes.
+//
+// The design: the LayerNorm needs the whole row (D = 1024), so a block owns
+// BM = 16 or 32 rows x all D columns: 8 warps along the columns (D / 8 each)
+// times 1 or 2 along the rows, mma.sync m16n8k32 with K streamed through two
+// cp.async stages (int8_mma.cuh). The weight stage is D x 64 bytes (80 KB at
+// D = 1024), so a block holds one SM; 32-row blocks halve the weight
+// re-reads from L2 and are taken when there are enough rows to fill the card.
+// After the K loop acc * (ws * s) + b (one fmaf) is staged in shared memory
+// over the spent stages (BM x (D + 4) floats, 128 KB at BM = 32); then one
+// warp per row adds the residual in the Pallas kernel's order, writes
+// x' once, and takes a two-pass f32 LayerNorm of the f32 x' (not of the
+// stored bf16) before the int8 quantisation. Rounding follows the Pallas
+// body op for op (int8_mma.cuh; rintf, 1 / sqrtf): only the LayerNorm's sums
+// are taken in another order.
+#include "int8_mma.cuh"
+
+namespace {
+
+using namespace mmt::i8;
+
+constexpr int kWarpsN = 8;
+
+// Four consecutive values as float (16-byte load for float, 8-byte for bf16).
+__device__ __forceinline__ float4 load4f(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4f(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4f(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4f(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ float& at(float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// One warp: LayerNorm of a row held as lane-owned float4 chunks (columns
+// 4 lane + 128 i), then quant(., inv_s) into out[0 .. D).
+template <int D>
+__device__ __forceinline__ void row_ln_quant(float4 (&x)[D / 128], const float* __restrict__ lnw,
+                                             const float* __restrict__ lnb, float eps, float inv_s,
+                                             int8_t* __restrict__ out, int lane) {
+  constexpr int kChunks = D / 128;
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum = __fadd_rn(sum, at(x[i], e));
+  const float mean = __fdiv_rn(mmt::warp_sum(sum), static_cast<float>(D));
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = __fsub_rn(at(x[i], e), mean);
+      sq = __fadd_rn(sq, __fmul_rn(d, d));
+    }
+  const float var = __fdiv_rn(mmt::warp_sum(sq), static_cast<float>(D));
+  const float rstd = __fdiv_rn(1.f, sqrtf(__fadd_rn(var, eps)));
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = 4 * lane + 128 * i;
+    float4 w = load4f(lnw + c), b = load4f(lnb + c);
+    char4 q;
+    q.x = quant(fmaf(__fmul_rn(__fsub_rn(x[i].x, mean), rstd), w.x, b.x), inv_s);
+    q.y = quant(fmaf(__fmul_rn(__fsub_rn(x[i].y, mean), rstd), w.y, b.y), inv_s);
+    q.z = quant(fmaf(__fmul_rn(__fsub_rn(x[i].z, mean), rstd), w.z, b.z), inv_s);
+    q.w = quant(fmaf(__fmul_rn(__fsub_rn(x[i].w, mean), rstd), w.w, b.w), inv_s);
+    *reinterpret_cast<char4*>(out + c) = q;
+  }
+}
+
+// K7a: one warp per row.
+template <int D, typename T>
+__global__ void __launch_bounds__(256)
+ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+                const float* __restrict__ lnb, int8_t* __restrict__ out, int M, float eps,
+                float inv_s) {
+  const int warp = threadIdx.x / mmt::kWarpSize, lane = threadIdx.x % mmt::kWarpSize;
+  const int row = blockIdx.x * 8 + warp;
+  if (row >= M) return;
+  float4 v[D / 128];
+#pragma unroll
+  for (int i = 0; i < D / 128; ++i) v[i] = load4f(x + size_t(row) * D + 4 * lane + 128 * i);
+  row_ln_quant<D>(v, lnw, lnb, eps, inv_s, out + size_t(row) * D, lane);
+}
+
+template <int D, int WM>
+struct RowLn {
+  static constexpr int kBM = 16 * WM;
+  static constexpr int kWarps = WM * kWarpsN;
+  static constexpr int kThreads = kWarps * mmt::kWarpSize;
+  static constexpr int kNT = D / (8 * kWarpsN);  // 8-column tiles per warp
+  static constexpr int kLdF = D + 4;              // staged f32 row stride
+  static constexpr int kStages = 2;  // a D-row weight stage is 80 KB at D = 1024
+  static constexpr size_t kSmem =
+      kStages * size_t(kBM + D) * kLd > size_t(kBM) * kLdF * 4 ? kStages * size_t(kBM + D) * kLd
+                                                               : size_t(kBM) * kLdF * 4;
+};
+
+// K7c / K7e.
+template <int D, int WM, typename T>
+__global__ void __launch_bounds__(RowLn<D, WM>::kThreads)
+res_ln_quant_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+                    const float* __restrict__ ws, const float* __restrict__ bias,
+                    const T* __restrict__ xres, const float* __restrict__ lnw,
+                    const float* __restrict__ lnb, T* __restrict__ xout,
+                    int8_t* __restrict__ xq, int M, int K, float s, float inv_s, float eps) {
+  using R = RowLn<D, WM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / mmt::kWarpSize, lane = threadIdx.x % mmt::kWarpSize;
+  const int m0 = blockIdx.x * R::kBM;
+  const int wm0 = (warp / kWarpsN) * 16, wn0 = (warp % kWarpsN) * (D / kWarpsN);
+  int acc[1][R::kNT][4];
+  gemm_mainloop<R::kBM, D, 1, R::kNT, R::kThreads, R::kStages>(acc, reinterpret_cast<int8_t*>(smem), A, W, M,
+                                                    D, K, m0, 0, wm0, wn0, lane);
+
+  // acc * (ws * s) + b into the staged rows, over the spent K stages
+  float* stage = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < R::kNT; ++j) {
+    const int col = wn0 + 8 * j + 2 * t;
+    const float sc0 = __fmul_rn(ws[col], s), sc1 = __fmul_rn(ws[col + 1], s);
+    const float b0 = bias[col], b1 = bias[col + 1];
+    float* r0 = stage + (wm0 + g) * R::kLdF + col;
+    float* r1 = r0 + 8 * R::kLdF;
+    r0[0] = fmaf(static_cast<float>(acc[0][j][0]), sc0, b0);
+    r0[1] = fmaf(static_cast<float>(acc[0][j][1]), sc1, b1);
+    r1[0] = fmaf(static_cast<float>(acc[0][j][2]), sc0, b0);
+    r1[1] = fmaf(static_cast<float>(acc[0][j][3]), sc1, b1);
+  }
+  __syncthreads();
+
+  for (int r = warp; r < R::kBM; r += R::kWarps) {
+    const int row = m0 + r;
+    if (row >= M) break;
+    float4 x[D / 128];
+#pragma unroll
+    for (int i = 0; i < D / 128; ++i) {
+      const int c = 4 * lane + 128 * i;
+      const float4 p = load4f(stage + r * R::kLdF + c);
+      const float4 res = load4f(xres + size_t(row) * D + c);
+      x[i] = make_float4(__fadd_rn(p.x, res.x), __fadd_rn(p.y, res.y), __fadd_rn(p.z, res.z),
+                         __fadd_rn(p.w, res.w));
+      store4f(xout + size_t(row) * D + c, x[i]);
+    }
+    row_ln_quant<D>(x, lnw, lnb, eps, inv_s, xq + size_t(row) * D, lane);
+  }
+}
+
+template <int D, int WM, typename T>
+int launch_res_ln(const void* a, const void* w, const void* ws, const void* bias,
+                  const void* xres, const void* lnw, const void* lnb, void* xout, void* xq, int M,
+                  int K, float s, float inv_s, float eps, cudaStream_t stream) {
+  using R = RowLn<D, WM>;
+  auto kernel = res_ln_quant_kernel<D, WM, T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(R::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (M + R::kBM - 1) / R::kBM;
+  kernel<<<blocks, R::kThreads, R::kSmem, stream>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
+      static_cast<const float*>(ws), static_cast<const float*>(bias),
+      static_cast<const T*>(xres), static_cast<const float*>(lnw),
+      static_cast<const float*>(lnb), static_cast<T*>(xout), static_cast<int8_t*>(xq), M, K, s,
+      inv_s, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Runs the statement with `kD` bound to the tower width `d` (128, 256, 768
+// or 1024); any other width returns cudaErrorInvalidValue.
+#define MMT_DISPATCH_VIT_WIDTH(d, ...)                \
+  do {                                                \
+    if ((d) == 128) {                                 \
+      constexpr int kD = 128;                         \
+      __VA_ARGS__;                                    \
+    } else if ((d) == 256) {                          \
+      constexpr int kD = 256;                         \
+      __VA_ARGS__;                                    \
+    } else if ((d) == 768) {                          \
+      constexpr int kD = 768;                         \
+      __VA_ARGS__;                                    \
+    } else if ((d) == 1024) {                         \
+      constexpr int kD = 1024;                        \
+      __VA_ARGS__;                                    \
+    } else {                                          \
+      return static_cast<int>(cudaErrorInvalidValue); \
+    }                                                 \
+  } while (0)
+
+// x (M, D) float or bf16, lnw / lnb (D,) float -> out (M, D) int8.
+extern "C" int mmt_int8_ln_quant(const void* x, const void* lnw, const void* lnb, void* out, int M,
+                                 int D, float eps, float inv_s, int dtype, void* stream) {
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  MMT_DISPATCH_VIT_WIDTH(D, MMT_DISPATCH_DTYPE(dtype, {
+    ln_quant_kernel<kD, scalar_t><<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const scalar_t*>(x), static_cast<const float*>(lnw),
+        static_cast<const float*>(lnb), static_cast<int8_t*>(out), M, eps, inv_s);
+    return static_cast<int>(cudaGetLastError());
+  }));
+}
+
+// a (M, K) int8, w (D, K) int8, ws / bias / lnw / lnb (D,) float, xres (M, D)
+// float or bf16 -> xout (M, D) in xres's dtype, xq (M, D) int8.
+extern "C" int mmt_int8_res_ln_quant(const void* a, const void* w, const void* ws,
+                                     const void* bias, const void* xres, const void* lnw,
+                                     const void* lnb, void* xout, void* xq, int M, int K, int D,
+                                     float s, float inv_s, float eps, int dtype, void* stream) {
+  if (M < 1 || K % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // 32-row blocks once there are at least two per SM of an H100 (132 SMs)
+  const bool tall = M >= 32 * 2 * 132;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MMT_DISPATCH_VIT_WIDTH(D, MMT_DISPATCH_DTYPE(dtype, {
+    return tall ? launch_res_ln<kD, 2, scalar_t>(a, w, ws, bias, xres, lnw, lnb, xout, xq, M, K, s,
+                                                 inv_s, eps, st)
+                : launch_res_ln<kD, 1, scalar_t>(a, w, ws, bias, xres, lnw, lnb, xout, xq, M, K, s,
+                                                 inv_s, eps, st);
+  }));
+}

@@ -9,7 +9,7 @@ float32 on the device before the tower. The int8 towers are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -17,6 +17,18 @@ from multimeditron_torch import default_device
 from multimeditron_torch.modalities.base import AutoModality, BaseModality, BaseModalityConfig
 from multimeditron_torch.models.projector import MLPProjector
 from multimeditron_torch.models.vit import ViT, ViTConfig
+from multimeditron_torch.models.vit_quant import (
+    ViTInt8,
+    calibrate_act_scales,
+    quantize_vit_params,
+    vit_params_tree,
+)
+from multimeditron_torch.ops.vit_int8_fused import (
+    ViTInt8Fused,
+    calibrate_vit_int8_fused,
+    pack_vit_int8_fused,
+    smooth_vit_params,
+)
 
 # The HF CLIP / SigLIP image-processor statistics (as in the JAX package's
 # data/image_processing.py, which imports PIL and so stays off this path).
@@ -74,6 +86,7 @@ class ImageModality(BaseModality):
             mean, std = CLIP_MEAN, CLIP_STD
         self.register_buffer("pixel_mean", torch.tensor(mean, device=device), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(std, device=device), persistent=False)
+        self.embedder_q: Optional[Union[ViTInt8Fused, ViTInt8]] = None
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.embedder.init_weights(generator)
@@ -87,8 +100,37 @@ class ImageModality(BaseModality):
         return values
 
     def encode(self, values: torch.Tensor) -> torch.Tensor:
-        feats = self.embedder(self._normalize_wire(values), drop_cls=True)
-        return self.projector(feats)
+        tower = self.embedder if self.embedder_q is None else self.embedder_q
+        return self.projector(tower(self._normalize_wire(values), drop_cls=True))
+
+    @torch.no_grad()
+    def quantize_params(self, calibration_values: Optional[torch.Tensor] = None,
+                        fused: bool = False) -> Union[ViTInt8Fused, ViTInt8]:
+        """W8A8-quantise the tower for inference and serving; ``encode`` then
+        runs the int8 tower (returned and kept as ``embedder_q``).
+
+        ``fused=True``: SmoothQuant folds, then an (L, 8) calibration on
+        ``calibration_values`` (required: the fused kernels take static
+        scales), then the packed layout of the K7 kernels. Otherwise the
+        unfused int8 tower, with (L, 4) static scales when calibration
+        values are given and dynamic per-row scales when not. The
+        calibration runs the float tower (K3) on the tower's device."""
+        params = vit_params_tree(self.embedder)
+        if fused:
+            if calibration_values is None:
+                raise ValueError("fused int8 quantization needs calibration_values "
+                                 "(static per-layer activation scales)")
+            calib = self._normalize_wire(calibration_values.to(self.pixel_mean.device))
+            params = smooth_vit_params(params, self.vit_cfg, calib)
+            scales = calibrate_vit_int8_fused(params, self.vit_cfg, calib)
+            self.embedder_q = ViTInt8Fused(self.vit_cfg, pack_vit_int8_fused(params), scales)
+        else:
+            scales = None
+            if calibration_values is not None:
+                calib = calibration_values.to(self.pixel_mean.device)
+                scales = calibrate_act_scales(params, self.vit_cfg, calib)
+            self.embedder_q = ViTInt8(self.vit_cfg, quantize_vit_params(params), scales)
+        return self.embedder_q
 
     def trainable_mask(self, train_embedder: bool, train_projector: bool) -> Dict[str, bool]:
         mask = {}

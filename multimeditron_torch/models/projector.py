@@ -2,7 +2,10 @@
 
 Counterpart of ``multimeditron_tpu/models/projector.py`` (bf16/f32 path):
 Linear(m, m) -> GELU -> Linear(m, H) -> GELU -> Linear(H, H), biased, exact
-(erf) GELU. The int8 variants are not ported yet.
+(erf) GELU; and its W8A8 twin (``quantize_mlp_projector``,
+``mlp_projector_forward_int8``): per-output-channel int8 weights, dynamic
+per-row activation scales, int8 products through ``torch._int_mm`` as the
+JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from torch import nn
 
 from multimeditron_torch import default_device
 from multimeditron_torch.models.common import gelu, init_linear_
+from multimeditron_torch.models.vit_quant import Params, _qdot, _quantize_weight
 
 
 class MLPProjector(nn.Module):
@@ -37,3 +41,30 @@ class MLPProjector(nn.Module):
         x = gelu(self.fc1(x))
         x = gelu(self.fc2(x))
         return self.fc3(x)
+
+
+def mlp_projector_tree(proj: MLPProjector) -> Params:
+    """The JAX ``init_mlp_projector`` tree of a projector: fc* (in, out)."""
+    tree = {}
+    for i, lin in enumerate((proj.fc1, proj.fc2, proj.fc3), start=1):
+        tree[f"fc{i}"] = lin.weight.detach().t()
+        tree[f"b{i}"] = lin.bias.detach()
+    return tree
+
+
+@torch.no_grad()
+def quantize_mlp_projector(params: Params) -> Params:
+    """W8A8 serving twin of the projector: ``fc*_q`` (out, in) int8 and
+    ``fc*_s`` (1, out) float32 per-output-channel scales; biases as they are."""
+    out = dict(params)
+    for key in ("fc1", "fc2", "fc3"):
+        q, s = _quantize_weight(out.pop(key))
+        out[key + "_q"] = q.t().contiguous()
+        out[key + "_s"] = s
+    return out
+
+
+def mlp_projector_forward_int8(qparams: Params, x: torch.Tensor) -> torch.Tensor:
+    x = gelu(_qdot(x, qparams["fc1_q"], qparams["fc1_s"]) + qparams["b1"])
+    x = gelu(_qdot(x, qparams["fc2_q"], qparams["fc2_s"]) + qparams["b2"])
+    return _qdot(x, qparams["fc3_q"], qparams["fc3_s"]) + qparams["b3"]

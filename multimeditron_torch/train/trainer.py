@@ -20,8 +20,11 @@ one the JAX trainer builds with optax, written in plain tensor ops:
 
 Frozen parameters (``TrainingMode``) have ``requires_grad=False``, so
 autograd computes no weight gradient for them, which is what the JAX
-trainer's ``stop_gradient`` achieves. Configurations the port does not run
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+trainer's ``stop_gradient`` achieves. ``quantize_frozen_towers`` builds the
+fused W8A8 twin of each frozen image tower once, calibrated on the first
+batch's first 16 items, and encodes through it from then on; the float tower
+stays the master copy. Configurations the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -106,10 +109,6 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
         raise NotImplementedError(
             "data parallel / FSDP training over several processes is not ported yet "
             "(ROADMAP queue 1, training path: multi-process data parallel)")
-    if cfg.quantize_frozen_towers:
-        raise NotImplementedError(
-            "quantize_frozen_towers needs the fused W8A8 ViT kernels K7, not ported "
-            "yet (ROADMAP queue 2)")
     if cfg.attn_impl is not None:
         raise NotImplementedError(
             "attn_impl: the port picks attention by device (ops/attention.py)")
@@ -213,6 +212,7 @@ class MultimodalTrainer:
         if config.grad_accum > 1:
             self.opt_state["acc_grads"] = {n: torch.zeros_like(p) for n, p in self._trainable}
         self.step = 0
+        self._qmods: Optional[Dict[str, Any]] = None  # quantize_frozen_towers, from batch 1
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -259,6 +259,7 @@ class MultimodalTrainer:
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One microbatch step. With grad_accum > 1 the optimizer applies
         once every grad_accum calls (optax.MultiSteps)."""
+        self._maybe_quantize_frozen_towers(batch)
         batch = _to_device(batch, self.device)
         _, loss = self.model.forward(batch, remat=self.cfg.remat)
         params = [p for _, p in self._trainable]
@@ -281,6 +282,23 @@ class MultimodalTrainer:
             self._apply(grads)
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    def _maybe_quantize_frozen_towers(self, batch: Dict[str, Any]) -> None:
+        """Build the fused int8 twin of each frozen modality tower, once,
+        calibrated on the first batch's first 16 items of that modality."""
+        if not self.cfg.quantize_frozen_towers or self._qmods is not None:
+            return
+        if TrainingMode(self.cfg.training_mode) == TrainingMode.FULL:
+            raise ValueError("quantize_frozen_towers needs frozen embedders "
+                             "(training_mode != FULL)")
+        qmods: Dict[str, Any] = {}
+        for mtype, pack in (batch.get("mm_inputs") or {}).items():
+            mod = self.model.modalities[mtype] if mtype in self.model.modalities else None
+            if mod is None or not hasattr(mod, "quantize_params"):
+                continue
+            values = _to_device(np.asarray(pack["values"])[:16], self.device)
+            qmods[mtype] = mod.quantize_params(values, fused=True)
+        self._qmods = qmods or None
 
     # ------------------------------------------------------------------
     def train(

@@ -8,8 +8,9 @@ with one (and without JAX), run from the repository root:
 Shapes are small and cover the edges the main path's shapes miss: tiny head
 dims, ragged sequences, GQA groups from 1 to 8 (16 in a verify block of 64
 rows per kv head), empty slots, fully masked attention rows, verify rows
-that see no key of a split. Gradients are compared relative to the largest gradient
-value (they are not of order 1): f32 1e-4, bf16 2e-2.
+that see no key of a split, int8 kernels at ragged row counts, S = 257 and
+196, drowned attention rows. Gradients are compared relative to the largest
+gradient value (they are not of order 1): f32 1e-4, bf16 2e-2.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ from multimeditron_torch.ops import attention as attn
 from multimeditron_torch.ops import encoder_attention as enc
 from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
+from multimeditron_torch.ops import vit_int8_fused as v8
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -287,3 +289,160 @@ def test_flash_wrapper_rejects_unsupported_head_dim(gen):
     q = torch.randn(1, 2, 16, 32, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         fl.flash_attention(q, q, q)
+
+
+# ----------------------------------------------------------------------
+# K7a / K7c / K7d / K7e / K7g: the fused W8A8 ViT kernels
+# ----------------------------------------------------------------------
+# int8 outputs: equal on >= 99.5% of elements and never more than 1 apart
+# (LayerNorm sums and P.V are taken in another order than the twin's);
+# residual outputs: within one ulp of their dtype at their magnitude.
+def _assert_int8_close(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff == 0).float().mean().item() >= 0.995
+
+
+def _assert_within_ulp(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30)))) * torch.finfo(want.dtype).eps
+    assert ((got.float() - w).abs() <= ulp).all()
+
+
+def _i8(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+
+def _unif(gen, lo, hi, *shape):
+    return lo + (hi - lo) * torch.rand(*shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(37, 128), (300, 768), (2056, 1024)])
+def test_ln_quant_kernel(gen, dtype, M, D):
+    x = (3 * torch.randn(M, D, generator=gen, device="cuda") + 0.5).to(dtype)
+    w, b = _unif(gen, 0.5, 1.5, D), 0.1 * torch.randn(D, generator=gen, device="cuda")
+    before = v8.launches["ln_quant"]
+    got = v8.ln_quant(x, w, b, 0.03, 1e-5)
+    assert v8.launches["ln_quant"] == before + 1
+    _assert_int8_close(got, v8.ln_quant_plain(x, w, b, v8.f32_inv(0.03), 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,M,K,D", [
+    ("oproj_ln_quant", 45, 1024, 1024),      # ragged 16-row block
+    ("fc2_res_ln_quant", 130, 3072, 768),    # SigLIP-base widths
+    ("fc2_res_ln_quant", 8500, 512, 256),    # 32-row blocks, ragged
+    ("oproj_ln_quant", 17, 256, 256),
+])
+def test_res_ln_quant_kernels(gen, dtype, name, M, K, D):
+    a8, wq = _i8(gen, M, K), _i8(gen, D, K)
+    ws = _unif(gen, 0.5, 1.5, D) / (127 * 60 * K ** 0.5)
+    bias = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    x_res = torch.randn(M, D, generator=gen, device="cuda").to(dtype)
+    lnw, lnb = _unif(gen, 0.5, 1.5, D), 0.1 * torch.randn(D, generator=gen, device="cuda")
+    fn = getattr(v8, name)
+    before = v8.launches[name]
+    xo, xq = fn(a8, x_res, wq, ws, bias, lnw, lnb, 1.3, 0.025, 1e-5)
+    assert v8.launches[name] == before + 1
+    xo_ref, xq_ref = v8.res_ln_quant_plain(a8, x_res, wq, ws, bias, lnw, lnb, 1.3,
+                                           v8.f32_inv(0.025), 1e-5)
+    _assert_within_ulp(xo, xo_ref)
+    _assert_int8_close(xq, xq_ref)
+
+
+@pytest.mark.parametrize("act", ["quick_gelu_approx", "quick_gelu", "gelu_pytorch_tanh",
+                                 "gelu_new", "gelu"])
+@pytest.mark.parametrize("M,K,N", [(130, 1024, 4096), (2056, 256, 512), (19, 768, 3072)])
+def test_fc1_gelu_quant_kernel(gen, act, M, K, N):
+    xq, wq = _i8(gen, M, K), _i8(gen, N, K)
+    ws = _unif(gen, 0.5, 1.5, N) / (127 * 40 * K ** 0.5)
+    bias = 0.2 * torch.randn(N, generator=gen, device="cuda")
+    before = v8.launches["fc1_gelu_quant"]
+    got = v8.fc1_gelu_quant(xq, wq, ws, bias, 1.1, 0.04, act)
+    assert v8.launches["fc1_gelu_quant"] == before + 1
+    _assert_int8_close(got, v8.fc1_gelu_quant_plain(xq, wq, ws, bias, 1.1, v8.f32_inv(0.04), act))
+
+
+def _qkv_case(gen, B, S, H, shift):
+    D = H * 64
+    xq, wq = _i8(gen, B, S, D), _i8(gen, 3, D, D)
+    ws = _unif(gen, 0.5, 1.5, 3, 1, D) / (127 * 60 * D ** 0.5)
+    bias = 0.1 * torch.randn(3, 1, D, generator=gen, device="cuda")
+    sq = sk = 2.5 / 127
+    scales6 = [1.0, 1 / sq, 1 / sk, shift, sq * sk * 64 ** -0.5, 127 / 0.6]
+    return xq, wq, ws, bias, scales6
+
+
+@pytest.mark.parametrize("B,S,H,kv_len", [
+    (3, 257, 16, 257),   # CLIP ViT-L/14
+    (2, 196, 12, 196),   # SigLIP base (no CLS)
+    (2, 40, 4, 33),      # masked keys
+])
+def test_qkv_attn_int8_kernel(gen, B, S, H, kv_len):
+    xq, wq, ws, bias, scales6 = _qkv_case(gen, B, S, H, shift=6.0)
+    before = v8.launches["qkv_attn_int8"]
+    got = v8.qkv_attn_int8(xq, wq, ws, bias, scales6, H, kv_len)
+    assert v8.launches["qkv_attn_int8"] == before + 1
+    want = v8.qkv_attn_int8_plain(xq, wq, ws, bias, scales6, H, kv_len)
+    _assert_int8_close(got, want)
+    assert want.abs().float().mean() > 1  # the case exercises the quantiser
+
+
+def test_qkv_attn_int8_kernel_drowned_rows_are_zero(gen):
+    # a stabiliser far above every logit underflows all p: 0 through the
+    # 1e-30 floor, not NaN
+    xq, wq, ws, bias, scales6 = _qkv_case(gen, 2, 50, 4, shift=400.0)
+    got = v8.qkv_attn_int8(xq, wq, ws, bias, scales6, 4, 50)
+    torch.cuda.synchronize()
+    assert not got.any()
+    assert not v8.qkv_attn_int8_plain(xq, wq, ws, bias, scales6, 4, 50).any()
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(gen):
+    x = torch.randn(8, 96, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="widths"):
+        v8.ln_quant(x, torch.ones(96, device="cuda"), torch.zeros(96, device="cuda"), 0.1, 1e-5)
+    xq, wq, ws, bias, scales6 = _qkv_case(gen, 1, 9, 4, 6.0)
+    with pytest.raises(ValueError, match="head dim"):
+        v8.qkv_attn_int8(xq, wq, ws, bias, scales6, 8, 9)  # 8 heads of 32
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        v8.qkv_attn_int8(xq, wq, ws, bias, scales6, 4, 9, bf16_qk=True)
+    # the C entry point refuses a width it was not built for: the wrapper's
+    # error check raises
+    from multimeditron_torch import _build
+    out = torch.empty(8, 96, dtype=torch.int8, device="cuda")
+    code = _build.library().mmt_int8_ln_quant(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 8, 96, 1e-5, 1.0, 0,
+        _build.stream_handle(x.device))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check("ln_quant", code)
+
+
+@pytest.mark.parametrize("dtype,tower", [(torch.float32, "clip"), (torch.bfloat16, "clip"),
+                                         (torch.bfloat16, "siglip")])
+def test_fused_int8_tower_card_matches_cpu(gen, dtype, tower):
+    from multimeditron_torch.modalities.image_clip import ImageConfig, ImageModality
+
+    cfg = ImageConfig(model_type="meditron_clip", hidden_size=128, clip_name="", tower=tower,
+                      image_size=56, patch_size=14 if tower == "clip" else 8,
+                      vision_hidden_size=256, vision_layers=2, vision_heads=4,
+                      vision_intermediate_size=512, param_dtype=str(dtype)[6:],
+                      wire_dtype="uint8")
+    cpu = ImageModality(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = ImageModality(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    values = torch.randint(0, 256, (6, 56, 56, 3), dtype=torch.uint8)
+    cpu.quantize_params(values[:4], fused=True)
+    card.quantize_params(values[:4].cuda(), fused=True)
+    before = dict(v8.launches)
+    got = card.encode(values.cuda()).float().cpu()
+    assert all(v8.launches[n] > before[n] for n in v8.launches)
+    want = cpu.encode(values).float()
+    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+    assert torch.isfinite(got).all() and cos.item() >= 0.999

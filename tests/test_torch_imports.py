@@ -31,6 +31,10 @@ import multimeditron_torch.convert
 import multimeditron_torch.serve.engine
 import multimeditron_torch.serve.prng
 import multimeditron_torch.ops.flash_attention
+import multimeditron_torch.ops.vit_int8_fused
+import multimeditron_torch.models.vit_quant
+import multimeditron_torch.models.projector
+import multimeditron_torch.modalities.image_clip
 import multimeditron_torch.profiling
 import multimeditron_torch.train.checkpoint
 import multimeditron_torch.train.data

@@ -268,8 +268,8 @@ def test_data_loader_defaults_to_one_process():
 
 
 @pytest.mark.parametrize("field", [dict(tp=2), dict(sp=2), dict(ep=2), dict(pp=2),
-                                   dict(ring_attention=True), dict(quantize_frozen_towers=True),
-                                   dict(dp=2), dict(fsdp=2), dict(attn_impl="xla")])
+                                   dict(ring_attention=True), dict(dp=2), dict(fsdp=2),
+                                   dict(attn_impl="xla")])
 def test_unported_config_fields_raise(jax_setup, tmp_path, field):
     with pytest.raises(NotImplementedError):
         _port_trainer(jax_setup, tmp_path, **field)
@@ -278,3 +278,49 @@ def test_unported_config_fields_raise(jax_setup, tmp_path, field):
 def test_trainer_config_has_the_jax_fields():
     assert ({f.name for f in dataclasses.fields(tt.TrainerConfig)}
             == {f.name for f in dataclasses.fields(jt.TrainerConfig)})
+
+
+def test_quantize_frozen_towers_matches_bf16_and_updates_projector(jax_setup, tmp_path):
+    """The JAX test of the same name on the port: the frozen tower encodes
+    through the fused int8 twin (built once, from the first batch), the loss
+    tracks the float run, the projector learns and the master tower stays."""
+    from multimeditron_torch.ops.vit_int8_fused import ViTInt8Fused
+
+    batch = jax_setup[2][0]
+    tq = _port_trainer(jax_setup, tmp_path, training_mode=Mode.ALIGNMENT,
+                       quantize_frozen_towers=True)
+    tb = _port_trainer(jax_setup, tmp_path, training_mode=Mode.ALIGNMENT)
+    before = {n: p.detach().clone() for n, p in tq.params.items()}
+    loss_q = float(tq.train_step(batch)["loss"])
+    loss_b = float(tb.train_step(batch)["loss"])
+    assert np.isfinite(loss_q)
+    assert isinstance(tq._qmods["image"], ViTInt8Fused)
+    assert tq.model.modalities["image"].embedder_q is tq._qmods["image"]
+    assert abs(loss_q - loss_b) / max(loss_b, 1e-6) < 0.05
+    for name, p in tq.params.items():
+        if ".projector." in name:
+            assert not torch.equal(p, before[name]), name  # the projector learned
+        elif ".embedder." in name:
+            assert torch.equal(p, before[name]), name  # the master tower is untouched
+    qm = tq._qmods
+    tq.train_step(batch)
+    assert tq._qmods is qm  # the second step reuses the int8 tower
+
+
+def test_quantize_frozen_towers_rejects_full_mode(jax_setup, tmp_path):
+    trainer = _port_trainer(jax_setup, tmp_path, training_mode=Mode.FULL,
+                            quantize_frozen_towers=True)
+    with pytest.raises(ValueError, match="frozen"):
+        trainer.train_step(jax_setup[2][0])
+
+
+@pytest.mark.parametrize("mode", [Mode.ALIGNMENT, Mode.END2END])
+def test_quantize_frozen_towers_first_loss_matches_jax(jax_setup, tmp_path, mode):
+    jmodel, params, batches = jax_setup
+    cfg_kw = dict(training_mode=mode, quantize_frozen_towers=True)
+    jtrainer = jt.MultimodalTrainer(jm.MultimodalModel(tiny_mm_config()), params,
+                                    _cfg(jt.TrainerConfig, tmp_path, **cfg_kw))
+    ttrainer = _port_trainer(jax_setup, tmp_path, **cfg_kw)
+    want = float(jtrainer.train_step(batches[0])["loss"])
+    got = float(ttrainer.train_step(batches[0])["loss"])
+    np.testing.assert_allclose(got, want, rtol=1e-3)

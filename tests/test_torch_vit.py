@@ -95,7 +95,25 @@ def test_convert_roundtrip_and_int8_refusal():
     back = export_jax_params(tmod)
     assert jax.tree.structure(back) == jax.tree.structure(params)
     jax.tree.map(np.testing.assert_array_equal, back, params)
-    # an int8 tower tree is refused, naming the ROADMAP item
-    qparams = jax.tree.map(np.asarray, jmod.quantize_params(params))
-    with pytest.raises(NotImplementedError, match="quantized paths"):
-        load_jax_params(tmod, qparams)
+    # both int8 tower trees round-trip, int8 leaves bitwise
+    calib = np.random.default_rng(7).normal(size=(2, 16, 16, 3)).astype(np.float32)
+    for fused in (False, True):
+        qparams = jax.tree.map(np.asarray, jmod.quantize_params(
+            params, calibration_values=calib if fused else None, fused=fused))
+        qmod = TImageModality(TImageConfig(**dataclasses.asdict(jcfg)), device="cpu")
+        load_jax_params(qmod, qparams)
+        qback = export_jax_params(qmod)
+        assert jax.tree.structure(qback) == jax.tree.structure(qparams)
+        jax.tree.map(np.testing.assert_array_equal, qback, qparams)
+    # an int8 LLM tree (quantize_llm) is still refused, naming the ROADMAP item
+    from multimeditron_tpu.models.llama_quant import quantize_llama_params
+    from multimeditron_tpu.models.multimodal import MultimodalModel as JModel
+    from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
+    from tests.test_multimodal import tiny_mm_config
+
+    jmodel = JModel(tiny_mm_config())
+    mm = jmodel.init_params(jax.random.PRNGKey(8))
+    mm["llm"] = quantize_llama_params(mm["llm"], jmodel.config.llm)
+    tmodel = MultimodalModel(MultimodalConfig.from_dict(jmodel.config.to_dict()), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        load_jax_params(tmodel, jax.tree.map(np.asarray, mm))
