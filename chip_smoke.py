@@ -51,7 +51,18 @@ Phases, each of which raises on failure (non-zero exit):
    tower + projector on the same images: img/s of each, calibration time,
    cosine (fails below 0.99), each K7 kernel's launches;
 10. serving with the int8 tower: phase 5 again on the quantised model; the
-   K7 kernels launch and K3 does not.
+   K7 kernels launch and K3 does not;
+11. int8 LLM serving at full width (the JAX bench's 8B configuration): the
+   phase-5 model with its bf16 tower, served with quantize_llm=True and
+   w8a8_prefill=True, phase 5's run and phase 8's speculative run (k = 4):
+   K9 launches 129 times a decode or verify step, W8A8 runs 4 x 32 products
+   a prefill call and none in decode; the int8 decoder's logits against the
+   bf16 model's on one probe prompt (W8A16, and W8A8 with the gate open).
+
+Phase 3 also holds K9 (the weight-only int8 matmul) against its twin at the
+Llama-3.1-8B projection shapes (M = 8, 40 and 4,096, and the lm_head at
+M = 8), float32 and bf16; phase 4 adds the engine with quantize_llm, and
+with quantize_llm + w8a8_prefill on a 256-row prefill.
 
 The last lines of standard output are JSON objects for the full-width runs,
 nvidia-smi's name and power limit, a JSON object describing each kernel,
@@ -80,6 +91,7 @@ from multimeditron_torch.ops import encoder_attention as enc
 from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
 from multimeditron_torch.ops import vit_int8_fused as v8
+from multimeditron_torch.ops import wo_matmul as wo
 from multimeditron_torch.models.projector import (
     mlp_projector_forward_int8,
     mlp_projector_tree,
@@ -137,6 +149,9 @@ KERNELS = {
     "fc2_res_ln_quant": dict(
         module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:166"),
+    "wo_matmul": dict(
+        module=wo, source="multimeditron_torch/csrc/wo_matmul.cu",
+        replaces="multimeditron_tpu/ops/wo_matmul.py:31"),
 }
 SERVING = ("encoder_attention", "ring_decode_attention", "fold_ring_into_pages")
 SPEC_SERVING = ("encoder_attention", "ring_verify_attention", "fold_ring_into_pages")
@@ -144,6 +159,13 @@ TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bw
 INT8_TOWER = ("ln_quant", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
               "fc2_res_ln_quant")
 INT8_SERVING = INT8_TOWER + ("ring_decode_attention", "fold_ring_into_pages")
+# Llama-3.1-8B projections, (K, N), in a decode step's order; 4 K9 calls a
+# layer and the lm_head make 129 a step
+LLAMA_8B_PROJ = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
+                 "down": (14336, 4096)}
+LM_HEAD_8B = (4096, 128256)
+K9_PER_STEP = 4 * 32 + 1
+W8A8_PER_PREFILL = 4 * 32
 
 
 def log(msg: str) -> None:
@@ -157,6 +179,7 @@ def launch_counts(names=SERVING) -> dict:
 def reset_launch_counts(names=tuple(KERNELS)) -> None:
     for name in names:
         KERNELS[name]["module"].launches[name] = 0
+    wo.launches["w8a8_matmul"] = 0  # not a kernel: where W8A8 fired
 
 
 def bound(dtype, bytes_moved: float, flops) -> dict:
@@ -617,6 +640,62 @@ def check_int8_kernels(gen, B: int) -> dict:
 
 
 # ----------------------------------------------------------------------
+# Phase 3, K9: the weight-only int8 matmul against its twin
+# ----------------------------------------------------------------------
+def check_wo_matmul(gen) -> dict:
+    """K9 at the Llama-3.1-8B projection shapes: decode (M = 8), verify with
+    k = 4 (M = 40) and W8A16 prefill (M = 4,096), and the lm_head at
+    M = 8, float32 and bf16; weight scales that put outputs at std ~0.5.
+    The library yardstick is torch.matmul on a weight dequantised ahead of
+    time (the product alone). Returns K9's entry: the bf16 decode step's
+    129 calls summed, each shape under "shapes"."""
+    shapes = [(name, M, K, N) for M in (8, 40, 4096) for name, (K, N) in LLAMA_8B_PROJ.items()]
+    shapes.append(("lm_head", 8, *LM_HEAD_8B))
+    per = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        for name, M, K, N in shapes:
+            w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+            ws = (0.5 + torch.rand(N, generator=gen, device="cuda")) * (0.5 / (73 * K ** 0.5))
+            x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+            err = check_close(f"K9 {t} {name} M={M}", wo.wo_matmul(x, w, ws),
+                              wo.wo_matmul_plain(x, w, ws), TOL[dtype])
+            deq = (w.float() * ws[:, None]).to(dtype).t()
+            n = 5 if M == 4096 else 20
+            elt = x.element_size()
+            per[f"{t} {name} M={M}"] = r = dict(
+                max_abs_err=err, ms=time_ms(lambda: wo.wo_matmul(x, w, ws), n=n),
+                device_ms=device_ms(lambda: wo.wo_matmul(x, w, ws), n=3 if M == 4096 else 10),
+                plain_ms=time_ms(lambda: wo.wo_matmul_plain(x, w, ws), n=n, warmup=1),
+                library_ms=time_ms(lambda: x @ deq, n=n),
+                # x and the int8 weight read, its scales read, the output written
+                bytes=M * K * elt + N * K + 4 * N + M * N * elt, ops=2 * M * K * N,
+                **bound(dtype, M * K * elt + N * K + 4 * N + M * N * elt, 2 * M * K * N))
+            log(f"  K9 {t} {name} M={M}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+                f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            del w, x, deq
+        torch.cuda.empty_cache()
+    # a decode step: 32 layers of the four projections, then the lm_head
+    step = [(32, per[f"bfloat16 {name} M=8"]) for name in LLAMA_8B_PROJ]
+    step.append((1, per["bfloat16 lm_head M=8"]))
+
+    def total(key):
+        return sum(k * r[key] for k, r in step)
+
+    out = dict(max_abs_err=max(r["max_abs_err"] for key, r in per.items()
+                               if key.startswith("bfloat16")),
+               ms=total("ms"), device_ms=total("device_ms"), plain_ms=total("plain_ms"),
+               library_ms=total("library_ms"), **bound(torch.bfloat16, total("bytes"), total("ops")),
+               measured_as="a bf16 decode step at M = 8: 32 x (qkv, o, gate-up, down) + lm_head",
+               shapes=per)
+    log(f"  K9 decode step (129 calls, bf16, M = 8): kernel {out['ms']:.4f} ms (device "
+        f"{out['device_ms']:.4f}), plain {out['plain_ms']:.4f}, library {out['library_ms']:.4f}, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+# ----------------------------------------------------------------------
 # Phases 4 and 5: the engine
 # ----------------------------------------------------------------------
 def make_request(rng, vocab: int, prompt_len: int, image_size: int = 0, patch: int = 1,
@@ -670,10 +749,10 @@ def check_f32_card_vs_cpu() -> None:
 
     def both(name, generate, **kw):
         """Tokens on the card and on the CPU, which must agree; the card's
-        kernel launches."""
+        kernel launches (and W8A8 products)."""
         reset_launch_counts()
         on_card = generate(ServingEngine(gpu_model, EngineConfig(**{**base, **kw})))
-        counts = launch_counts(tuple(KERNELS))
+        counts = {**launch_counts(tuple(KERNELS)), "w8a8_matmul": wo.launches["w8a8_matmul"]}
         on_cpu = generate(ServingEngine(cpu_model, EngineConfig(**{**base, **kw})))
         log(f"  {name}: card {on_card}")
         if on_card != on_cpu:
@@ -702,6 +781,28 @@ def check_f32_card_vs_cpu() -> None:
     both("chunked 100-token prompt", lambda e: e.generate([long_prompt] + batches[1:]))
     both("staggered admission", lambda e: e.generate(batches + batches), prefill_group_cap=1)
 
+    # the int8 LLM: W8A16 through K9 everywhere ...
+    q_plain, counts = both("quantize_llm greedy", lambda e: e.generate(batches), quantize_llm=True)
+    if not counts["wo_matmul"] or counts["w8a8_matmul"]:
+        raise AssertionError(f"quantize_llm engine launches: {counts}")
+    q_spec, _ = both("quantize_llm speculative k=2", lambda e: e.generate(batches),
+                     quantize_llm=True, speculative_k=2)
+    if q_spec != q_plain:
+        raise AssertionError("quantize_llm: speculative greedy (k=2) differs from plain greedy")
+    # ... and W8A8 on a prefill of 256 padded rows (a 12-token prompt in the
+    # 256 bucket: few valid rows, so few int8 codes near a rounding boundary
+    # that the card's and the CPU's float32 sums could round apart)
+    w8 = dict(quantize_llm=True, w8a8_prefill=True, prefill_buckets=(8, 256), max_seq_len=320)
+    short = [make_request(rng, 1024, 12)]
+    w8_plain, counts = both("quantize_llm + w8a8_prefill greedy (256-row prefill)",
+                            lambda e: e.generate(short), **w8)
+    if counts["w8a8_matmul"] != 4 * 2 or not counts["wo_matmul"]:
+        raise AssertionError(f"W8A8 did not run the 256-row prefill's 8 products: {counts}")
+    w8_spec, _ = both("quantize_llm + w8a8_prefill speculative k=2",
+                      lambda e: e.generate(short), speculative_k=2, **w8)
+    if w8_spec != w8_plain:
+        raise AssertionError("w8a8_prefill: speculative greedy (k=2) differs from plain greedy")
+
 
 def full_width_model() -> MultimodalModel:
     """Llama-3.1-8B widths + the default CLIP ViT-L/14 tower, bf16, seeded."""
@@ -720,12 +821,35 @@ def full_width_model() -> MultimodalModel:
     return model
 
 
-def run_full_width(model: MultimodalModel, int8_tower: bool = False) -> dict:
-    """Phase 5 (float tower: K3) or, with ``int8_tower``, phase 10 (the
-    fused int8 tower: K7, and no K3)."""
+INT8_LLM = dict(quantize_llm=True, w8a8_prefill=True)  # the JAX bench's 8B legs
+
+
+def check_int8_llm_launches(counts: dict, steps: int, prefill_calls: int) -> None:
+    """K9 runs every projection of a decode or verify step and the lm_head
+    of every prefill call; W8A8 runs the 4 x 32 projections of every
+    prefill call and nothing else."""
+    if counts["wo_matmul"] < K9_PER_STEP * steps + prefill_calls:
+        raise AssertionError(f"K9 launched fewer than {K9_PER_STEP} times a step: {counts}")
+    if counts["w8a8_matmul"] != W8A8_PER_PREFILL * prefill_calls:
+        raise AssertionError(f"W8A8 products are not {W8A8_PER_PREFILL} a prefill call "
+                             f"and 0 in decode: {counts}")
+
+
+def logit_fidelity(ref: torch.Tensor, got: torch.Tensor) -> dict:
+    """Mean per-position cosine and top-1 agreement of (S, V) logits."""
+    ref, got = ref.float(), got.float()
+    return dict(cosine_mean=F.cosine_similarity(ref, got, dim=-1).mean().item(),
+                top1_agreement=(ref.argmax(-1) == got.argmax(-1)).float().mean().item())
+
+
+def run_full_width(model: MultimodalModel, int8_tower: bool = False,
+                   int8_llm: bool = False) -> dict:
+    """Phase 5 (float tower: K3), with ``int8_tower`` phase 10 (the fused
+    int8 tower: K7, and no K3), with ``int8_llm`` phase 11 (quantize_llm +
+    w8a8_prefill: K9 and W8A8)."""
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=640, prefill_buckets=(512,), page_size=128,
-        decode_chunk=8, temperature=0.7))
+        decode_chunk=8, temperature=0.7, **(INT8_LLM if int8_llm else {})))
     log(f"  engine: {engine.num_pages} pages, KV pool "
         f"{2 * engine.state['k'].numel() * engine.state['k'].element_size() / 1e9:.3f} GB")
     vocab, n_req = model.config.llm.vocab_size, 8
@@ -748,6 +872,8 @@ def run_full_width(model: MultimodalModel, int8_tower: bool = False) -> dict:
     engine.run()
     wall = time.time() - t0
     counts = launch_counts(INT8_SERVING + ("encoder_attention",) if int8_tower else SERVING)
+    if int8_llm:
+        counts.update(wo_matmul=wo.launches["wo_matmul"], w8a8_matmul=wo.launches["w8a8_matmul"])
     work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=engine.n_decode_steps,
                 decode_chunks=engine.n_decode_chunks)
     log(f"  launches: {counts}; work: {work}")
@@ -772,22 +898,53 @@ def run_full_width(model: MultimodalModel, int8_tower: bool = False) -> dict:
         raise AssertionError("K4 launched fewer than 32 times per decode step")
     if counts["fold_ring_into_pages"] < work["decode_chunks"]:
         raise AssertionError("K5 launched fewer times than there were decode chunks")
+    if int8_llm:
+        check_int8_llm_launches(counts, work["decode_steps"], work["prefill_calls"])
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
 
     # outputs of the path are finite and shaped: one image through the tower
     # and a short prompt through the decoder
+    fidelity = {}
     with torch.inference_mode():
         probe = make_request(rng, vocab, 300, image_size=224, patch=14)
         mm = {"image": {k: torch.from_numpy(v).cuda()
                         for k, v in probe["mm_inputs"]["image"].items()}}
         feats = model.modalities["image"].encode(mm["image"]["values"])
-        logits, _ = model.llm(inputs_embeds=model.embed(
-            torch.from_numpy(probe["input_ids"]).cuda(), mm))
+        embeds = model.embed(torch.from_numpy(probe["input_ids"]).cuda(), mm)
+        logits, _ = model.llm(inputs_embeds=embeds)
+        if int8_llm:
+            # the int8 decoder against the bf16 one on the same 300 positions
+            w8a16, _ = engine.llm(inputs_embeds=embeds, w8a8_min_rows=0)
+            w8a8, _ = engine.llm(inputs_embeds=embeds, w8a8_min_rows=256)
+            top2 = logits[0].float().topk(2, dim=-1).values
+            fidelity = {"w8a16_vs_bf16": logit_fidelity(logits[0], w8a16[0]),
+                        "w8a8_vs_bf16": logit_fidelity(logits[0], w8a8[0]),
+                        "w8a8_vs_w8a16": logit_fidelity(w8a16[0], w8a8[0]),
+                        "bf16_top2_gap_median": (top2[:, 0] - top2[:, 1]).median().item(),
+                        "bf16_logit_std": logits[0].float().std().item()}
+            del w8a16, w8a8
     if feats.shape != (1, 256, 4096) or not torch.isfinite(feats).all():
         raise AssertionError(f"image features {tuple(feats.shape)} not finite/shaped")
     if logits.shape != (1, 300, vocab) or not torch.isfinite(logits.float()).all():
         raise AssertionError(f"logits {tuple(logits.shape)} not finite/shaped")
+    if fidelity:
+        log(f"  int8 decoder vs bf16 on a 300-token probe: {fidelity}")
+        # the JAX fidelity contract (docs/known_issues.md:141-144)
+        if not all(fidelity[k]["cosine_mean"] > 0.99 and fidelity[k]["top1_agreement"] > 0.9
+                   for k in ("w8a16_vs_bf16", "w8a8_vs_bf16", "w8a8_vs_w8a16")):
+            raise AssertionError(f"int8 logits miss cosine > 0.99, top-1 > 0.9: {fidelity}")
+
+    # one prefill call of the 8 requests alone (a budget of one token), traced
+    batches = requests()
+
+    def prefill_only():
+        for b in batches:
+            engine.submit(b, max_new_tokens=1)
+        engine.run()
+
+    prefill = busy_profile(prefill_only)
+    log(f"  one 8-request prefill: {prefill}")
 
     ttfts = sorted(r.ttft for r in reqs)
     first = max(r.first_token_time for r in reqs)
@@ -798,24 +955,26 @@ def run_full_width(model: MultimodalModel, int8_tower: bool = False) -> dict:
         ttft_p95_ms=float(np.percentile(ttfts, 95)) * 1000,
         ttft_max_ms=ttfts[-1] * 1000,
         decode_tok_per_s=decode_tokens / (last - first),
+        prefill_profile=prefill,
         wall_s=wall,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         tokens=sum(len(r.tokens) for r in reqs),
-        launches=counts, **work)
+        launches=counts, **work, **({"fidelity": fidelity} if fidelity else {}))
     log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, p95 {out['ttft_p95_ms']:.1f} ms, decode "
         f"{out['decode_tok_per_s']:.1f} tok/s over {work['decode_steps']} steps, peak memory "
         f"{out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
     return out
 
 
-def run_spec_full_width(model: MultimodalModel) -> dict:
+def run_spec_full_width(model: MultimodalModel, int8_llm: bool = False) -> dict:
     """Speculative serving at full width (the JAX bench's speculative leg,
     k = 4, paged, greedy, scaled to 8 slots): 3 requests of 512 tokens, a
     forked group of 4 over one 512-token prompt and a 1,000-token prompt
-    (two chunks), each with one image and 64 new tokens."""
+    (two chunks), each with one image and 64 new tokens. With ``int8_llm``
+    (phase 11) through quantize_llm + w8a8_prefill."""
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=1152, prefill_buckets=(512,), page_size=128,
-        decode_chunk=8, speculative_k=4, do_sample=False))
+        decode_chunk=8, speculative_k=4, do_sample=False, **(INT8_LLM if int8_llm else {})))
     vocab = model.config.llm.vocab_size
     rng = np.random.default_rng(4)
 
@@ -841,6 +1000,8 @@ def run_spec_full_width(model: MultimodalModel) -> dict:
     engine.run()
     wall = time.time() - t0
     counts = launch_counts(SPEC_SERVING)
+    if int8_llm:
+        counts.update(wo_matmul=wo.launches["wo_matmul"], w8a8_matmul=wo.launches["w8a8_matmul"])
     work = dict(prefill_calls=engine.n_prefill_calls, verify_steps=engine.spec_verify_steps,
                 slot_steps=engine.spec_slot_steps, emitted=engine.spec_emitted)
     log(f"  launches: {counts}; work: {work}; page_ref max after admission {shared}")
@@ -859,6 +1020,8 @@ def run_spec_full_width(model: MultimodalModel) -> dict:
         raise AssertionError("K5 launched fewer times than there were verify steps")
     if counts["encoder_attention"] < 24 * work["prefill_calls"]:
         raise AssertionError("K3 launched fewer than 24 times per prefill call")
+    if int8_llm:
+        check_int8_llm_launches(counts, work["verify_steps"], work["prefill_calls"])
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
 
@@ -868,6 +1031,7 @@ def run_spec_full_width(model: MultimodalModel) -> dict:
     decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
     out = dict(
         ttft_p50_ms=statistics.median(ttfts) * 1000,
+        ttft_p95_ms=float(np.percentile(ttfts, 95)) * 1000,
         ttft_max_ms=ttfts[-1] * 1000,
         decode_tok_per_s=decode_tokens / (last - first),
         accepted_per_slot_step=work["emitted"] / max(work["slot_steps"], 1),
@@ -1211,6 +1375,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name in INT8_TOWER:  # the encode shape's numbers head each entry
         results[name] = {**results[name]["encode"], "serving_shape": results[name]["serving"]}
+    results["wo_matmul"] = check_wo_matmul(gen)
     sampler = time_sampler(gen)
     log(f"  sampling (8, 128256) f32: threefry categorical {sampler['threefry_ms']:.4f} ms, "
         f"argmax {sampler['argmax_ms']:.4f} ms")
@@ -1251,11 +1416,22 @@ def main() -> int:
 
     log("[10] full width serving with the int8 tower: phase 5 on the quantised model")
     full_int8 = run_full_width(model, int8_tower=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[11] full width int8 LLM serving: quantize_llm + w8a8_prefill, bf16 tower; phase 5's "
+        "run, then phase 8's speculative run (k = 4)")
+    model.modalities["image"].embedder_q = None  # back to phase 5's bf16 tower
+    llm_int8 = run_full_width(model, int8_llm=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_int8 = run_spec_full_width(model, int8_llm=True)
 
     # each kernel's launches in the full-width run of its path
     launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
                 "ring_verify_attention": spec["launches"]["ring_verify_attention"],
-                **{n: encode["launches"][n] for n in INT8_TOWER}}
+                **{n: encode["launches"][n] for n in INT8_TOWER},
+                "wo_matmul": llm_int8["launches"]["wo_matmul"]}
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
@@ -1265,6 +1441,7 @@ def main() -> int:
     print(json.dumps({"spec_full_width": spec}))
     print(json.dumps({"int8_encode": encode}))
     print(json.dumps({"full_width_int8_tower": {k: v for k, v in full_int8.items()}}))
+    print(json.dumps({"full_width_int8_llm": llm_int8, "spec_full_width_int8_llm": spec_int8}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

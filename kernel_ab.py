@@ -1,6 +1,8 @@
-"""Time the W8A8 ViT kernels (K7c, K7d, K7e, K7g) of several kernel source
-trees in one process, on one card, at the ViT-L/14 encode shape (256 images,
-M = 65,792 rows).
+"""Time the W8A8 ViT kernels (K7c, K7d, K7e, K7g) and the weight-only int8
+matmul K9 of several kernel source trees in one process, on one card: K7 at
+the ViT-L/14 encode shape (256 images, M = 65,792 rows), K9 in bf16 at the
+Llama-3.1-8B decode shapes (M = 8) and the W8A16 prefill's gate-up
+(M = 4,096).
 
     python3 kernel_ab.py [SOURCE_DIR ...]
 
@@ -21,6 +23,7 @@ import torch
 import chip_smoke as cs
 from multimeditron_torch import _build
 from multimeditron_torch.ops import vit_int8_fused as v8
+from multimeditron_torch.ops import wo_matmul as wo
 
 
 def main(dirs) -> int:
@@ -43,6 +46,14 @@ def main(dirs) -> int:
                                                         c["bD"], c["lnw"], c["lnb"], 1.3, 0.025,
                                                         1e-5),
     }
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(name, 8, K, N) for name, (K, N) in cs.LLAMA_8B_PROJ.items()]
+    shapes += [("lm_head", 8, *cs.LM_HEAD_8B), ("gateup", 4096, *cs.LLAMA_8B_PROJ["gateup"])]
+    for name, M, K, N in shapes:
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+        ws = (0.5 + torch.rand(N, generator=gen, device="cuda")) * (0.5 / (73 * K ** 0.5))
+        runs[f"wo_matmul {name} M={M}"] = lambda x=x, w=w, ws=ws: wo.wo_matmul(x, w, ws)
 
     def equal(a, b):
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))

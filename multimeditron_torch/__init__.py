@@ -22,7 +22,10 @@ training forward with per-layer remat and the flash attention kernels, the
 loss, staged freezing and the masked AdamW trainer with checkpoints and a
 data loader — and the W8A8 image tower: the fused int8 ViT kernels (K7),
 the unfused int8 tower, the int8 projector, the image modality's
-``quantize_params`` and the trainer's ``quantize_frozen_towers``.
+``quantize_params`` and the trainer's ``quantize_frozen_towers`` — and the
+int8 LLM serving path: the quantised decoder (``models/llama_quant.py``) on
+the weight-only int8 matmul (K9) and the engine's ``quantize_llm`` and
+``w8a8_prefill``.
 
 This package imports ``torch`` and ``numpy``, and nothing of the JAX
 package: the framework-free modules it needs from there

@@ -79,6 +79,9 @@ SIGNATURES = {
     "mmt_int8_qkv_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     # q8, k8, v, o, B, S, H, dh, kv_len, a, shift, inv_s1, stream
     "mmt_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # x, w_q, w_s, out, partial (float32 scratch or NULL), M, K, N, splits,
+    # chunks_per_split, dtype, stream
+    "mmt_wo_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

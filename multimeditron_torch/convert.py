@@ -12,8 +12,13 @@ An image modality's W8A8 tower trees load too, fused (``wqkv_q``, ...,
 they become the modality's ``embedder_q`` (``ViTInt8Fused`` or ``ViTInt8``),
 with int8 matrices transposed to the port's (N, K) layout and every other
 leaf as it is; the float tower keeps its parameters. ``export_jax_params``
-writes such a modality's int8 tower back. Int8 LLM trees (``quantize_llm``)
-are refused.
+writes such a modality's int8 tower back.
+
+Int8 LLM trees (``quantize_llama_params``: fused ``qkv_q`` / ``gateup_q`` or
+unfused ``q_proj_q`` ..., with ``_s`` scales, and ``lm_head_q`` /
+``lm_head_s``, tied heads included) load into a decoder whose projections
+become :class:`~multimeditron_torch.models.llama.Int8Linear` in the tree's
+layout, int8 matrices transposed to (N, K); export writes them back.
 """
 
 from __future__ import annotations
@@ -26,17 +31,22 @@ from torch import nn
 
 from multimeditron_torch.modalities.image_clip import ImageModality
 from multimeditron_torch.models.llama import Llama
+from multimeditron_torch.models.llama_quant import set_int8_layout
 from multimeditron_torch.models.multimodal import MultimodalModel
 from multimeditron_torch.models.projector import MLPProjector
 from multimeditron_torch.models.vit import ViT
 from multimeditron_torch.models.vit_quant import ViTInt8
 from multimeditron_torch.ops.vit_int8_fused import ViTInt8Fused
 
-# JAX leaf name -> (port parameter name, transpose)
+_INT8_PROJ = ("qkv", "gateup", "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+              "down_proj")
+# JAX leaf name -> (port parameter or buffer name, transpose)
 _LLAMA_TOP = {
     "embed_tokens": ("embed_tokens.weight", False),
     "lm_head": ("lm_head.weight", True),
     "final_norm": ("final_norm.weight", False),
+    "lm_head_q": ("lm_head.weight_q", True),
+    "lm_head_s": ("lm_head.scale", False),
 }
 _LLAMA_LAYER = {
     "input_norm": ("input_norm.weight", False),
@@ -52,6 +62,8 @@ _LLAMA_LAYER = {
     "k_norm": ("k_norm.weight", False),
     "xielu_alpha_p": ("xielu_alpha_p", False),
     "xielu_alpha_n": ("xielu_alpha_n", False),
+    **{f"{p}_q": (f"{p}.weight_q", True) for p in _INT8_PROJ},
+    **{f"{p}_s": (f"{p}.scale", False) for p in _INT8_PROJ},
 }
 _VIT_TOP = {
     "patch_proj": ("patch_proj.weight", True),
@@ -107,6 +119,8 @@ def _entries(module: nn.Module) -> List[_Entry]:
     else:
         raise TypeError(f"no JAX parameter layout for {type(module).__name__}")
     names = dict(module.named_parameters())
+    if isinstance(module, Llama):
+        names.update(module.named_buffers())  # Int8Linear's weight_q and scale
     out = [((j,), n, t, None) for j, (n, t) in top.items() if n in names]
     layers = getattr(module, "layers", [])
     for j, (n, t) in per_layer.items():
@@ -165,8 +179,25 @@ def _int8_tower(mod: ImageModality, sub: Dict):
     return None
 
 
+def _decoders(module: nn.Module) -> Dict[Tuple[str, ...], Llama]:
+    """JAX path prefix -> the decoder of ``module``."""
+    if isinstance(module, Llama):
+        return {(): module}
+    if isinstance(module, MultimodalModel):
+        return {("llm",): module.llm}
+    return {}
+
+
 def load_jax_params(module: nn.Module, tree: Dict) -> None:
-    """Copy a JAX parameter tree (numpy leaves) into ``module`` in place."""
+    """Copy a JAX parameter tree (numpy leaves) into ``module`` in place; an
+    int8 LLM tree turns the decoder's projections into int8 ones first."""
+    for prefix, llm in _decoders(module).items():
+        sub = tree
+        for key in prefix:
+            sub = sub.get(key, {})
+        layers = sub.get("layers", {})
+        if "qkv_q" in layers or "q_proj_q" in layers:
+            set_int8_layout(llm, fuse="qkv_q" in layers)
     towers = {}
     for prefix, mod in _image_modalities(module).items():
         sub = tree
@@ -178,12 +209,6 @@ def load_jax_params(module: nn.Module, tree: Dict) -> None:
     leaves = dict(_leaves(tree))
     tower_paths = {p for p in leaves for prefix in towers
                    if p[:len(prefix) + 1] in (prefix + ("embedder",), prefix + ("act_scales",))}
-    quantized = [p for p in leaves if p not in tower_paths
-                 and (p[-1].endswith("_q") or "act_scales" in p)]
-    if quantized:
-        raise NotImplementedError(
-            f"int8 LLM trees (e.g. {'/'.join(quantized[0])}, quantize_llm) are not ported "
-            "yet (ROADMAP queue 1 item 6, quantized paths)")
     kept = tuple(_tower_name(prefix) for prefix in towers)
     state, used = {}, set(tower_paths)
     for path, name, transpose, layer in _entries(module):
@@ -216,6 +241,7 @@ def export_jax_params(module: nn.Module) -> Dict:
     arrays (bf16 parameters come out as float32). A modality with an int8
     tower (``embedder_q``) exports that tower, as its JAX tree holds it."""
     params = dict(module.named_parameters())
+    params.update(module.named_buffers())
     stacked: Dict[Tuple[str, ...], list] = {}
     tree: Dict = {}
     towers = {p: m.embedder_q for p, m in _image_modalities(module).items()

@@ -9,8 +9,15 @@ steps against a page pool + per-chunk ring: a single-token decode step
 Supports GQA, RoPE with HF llama3 scaling and 2-D position ids, optional
 QK-norm, gated and plain MLPs (activation in float32) and tied embeddings.
 
+Projections are ``nn.Linear`` or, in a decoder quantised by
+``models/llama_quant.py``, :class:`Int8Linear` (W8A16 through kernel K9),
+with q|k|v and gate|up fused into one weight each. The W8A8 row gate
+(``w8a8_min_rows``, the JAX ``_maybe_quantize_act``) quantises each
+activation once per row and feeds every int8 projection that reads it when
+a call has at least that many (padded) rows.
+
 Not ported yet, and refused with ``NotImplementedError``: sequence, ring and
-pipeline parallelism, W8A8/W8A16 weights and contiguous-cache decode.
+pipeline parallelism and contiguous-cache decode.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from multimeditron_torch.models.common import (
 )
 from multimeditron_torch.ops.attention import attention
 from multimeditron_torch.ops.paged_attention import ring_decode_attention, ring_verify_attention
+from multimeditron_torch.ops.wo_matmul import quantize_rows, w8a8_matmul, wo_matmul
 
 Cache = Dict[str, torch.Tensor]
 
@@ -106,9 +114,6 @@ def _refuse_unported(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             "sequence/ring/pipeline parallelism is not ported yet "
             "(ROADMAP queue 1, parallelism)")
-    if cfg.w8a8_min_rows:
-        raise NotImplementedError(
-            "W8A8 prefill is not ported yet (ROADMAP queue 1, quantized paths)")
     if not cfg.mlp_gate and cfg.hidden_act != "xielu" and cfg.hidden_act not in _PLAIN_ACTS:
         raise NotImplementedError(f"plain-MLP activation {cfg.hidden_act!r}")
 
@@ -158,6 +163,42 @@ def init_paged_kv_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
 # ----------------------------------------------------------------------
 # Modules
 # ----------------------------------------------------------------------
+class Int8Linear(nn.Module):
+    """A projection with int8 weights ``weight_q`` (out, in), K contiguous,
+    and per-output-channel float32 ``scale`` (out,): W8A16 through
+    :func:`wo_matmul`, or W8A8 through :func:`w8a8_matmul` when the caller
+    passes the quantised activation ``act_q``."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.empty(
+            (out_features, in_features), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty(
+            (out_features,), dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, act_q=None) -> torch.Tensor:
+        if act_q is not None:
+            return w8a8_matmul(act_q[0], act_q[1], self.weight_q, self.scale, x.dtype)
+        return wo_matmul(x, self.weight_q, self.scale)
+
+
+def _proj(mod: nn.Module, h: torch.Tensor, act_q=None) -> torch.Tensor:
+    return mod(h) if act_q is None else mod(h, act_q)
+
+
+def _maybe_quantize_act(h: torch.Tensor, probe: nn.Module, min_rows: int):
+    """(int8 rows, scales) for the W8A8 products that read ``h``, or None:
+    needs a gate, an int8 projection and at least ``min_rows`` rows of
+    ``h`` as it is shaped (padding included, as JAX counts its static
+    shape)."""
+    if not min_rows or not isinstance(probe, Int8Linear):
+        return None
+    if h.numel() // h.shape[-1] < min_rows:
+        return None
+    return quantize_rows(h)
+
+
 class LlamaLayer(nn.Module):
     """One decoder layer (the JAX ``_layer``)."""
 
@@ -179,6 +220,9 @@ class LlamaLayer(nn.Module):
         if cfg.use_qk_norm:
             self.q_norm = RMSNorm(Dh, cfg.rms_norm_eps, **kw)
             self.k_norm = RMSNorm(Dh, cfg.rms_norm_eps, **kw)
+        # fused int8 q|k|v and gate|up of a quantised decoder (llama_quant)
+        self.qkv: Optional[Int8Linear] = None
+        self.gateup: Optional[Int8Linear] = None
         if cfg.hidden_act == "xielu":
             f32 = dict(device=device, dtype=torch.float32)
             self.xielu_alpha_p = nn.Parameter(torch.empty(1, **f32))
@@ -224,14 +268,23 @@ class LlamaLayer(nn.Module):
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
                 attention_mask: torch.Tensor, inv_freq: torch.Tensor,
                 cache: Optional[Cache] = None, layer_index: int = 0,
-                prefill: bool = False) -> torch.Tensor:
+                prefill: bool = False, w8a8_min_rows: int = 0) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        gate = w8a8_min_rows  # the W8A8 row gate of this call
         h = self.input_norm(x)
-        q = self.q_proj(h).view(B, S, H, Dh)
-        k = self.k_proj(h).view(B, S, Hkv, Dh)
-        v = self.v_proj(h).view(B, S, Hkv, Dh)
+        if self.qkv is not None:
+            qkv = _proj(self.qkv, h, _maybe_quantize_act(h, self.qkv, gate))
+            Dq, Dkv = H * Dh, Hkv * Dh
+            q = qkv[..., :Dq].reshape(B, S, H, Dh)
+            k = qkv[..., Dq:Dq + Dkv].reshape(B, S, Hkv, Dh)
+            v = qkv[..., Dq + Dkv:].reshape(B, S, Hkv, Dh)
+        else:
+            hq = _maybe_quantize_act(h, self.q_proj, gate)  # shared by q, k and v
+            q = _proj(self.q_proj, h, hq).view(B, S, H, Dh)
+            k = _proj(self.k_proj, h, hq).view(B, S, Hkv, Dh)
+            v = _proj(self.v_proj, h, hq).view(B, S, Hkv, Dh)
         if cfg.use_qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -249,17 +302,25 @@ class LlamaLayer(nn.Module):
             raise NotImplementedError(
                 "decode against a contiguous cache (generation.py, slab mode) "
                 "is not ported yet")
-        x = x + self.o_proj(out.transpose(1, 2).reshape(B, S, H * Dh))
+        out = out.transpose(1, 2).reshape(B, S, H * Dh)
+        x = x + _proj(self.o_proj, out, _maybe_quantize_act(out, self.o_proj, gate))
 
         h = self.post_attn_norm(x)
-        up = self.up_proj(h).float()
-        if cfg.mlp_gate:
-            act = F.silu(self.gate_proj(h).float()) * up
-        elif cfg.hidden_act == "xielu":
-            act = xielu(up, self.xielu_alpha_p, self.xielu_alpha_n)
+        if self.gateup is not None:
+            gu = _proj(self.gateup, h, _maybe_quantize_act(h, self.gateup, gate)).float()
+            inter = gu.shape[-1] // 2
+            act = F.silu(gu[..., :inter]) * gu[..., inter:]
         else:
-            act = _PLAIN_ACTS[cfg.hidden_act](up)
-        return x + self.down_proj(act.to(h.dtype))
+            hq = _maybe_quantize_act(h, self.up_proj, gate)  # shared by up and gate
+            up = _proj(self.up_proj, h, hq).float()
+            if cfg.mlp_gate:
+                act = F.silu(_proj(self.gate_proj, h, hq).float()) * up
+            elif cfg.hidden_act == "xielu":
+                act = xielu(up, self.xielu_alpha_p, self.xielu_alpha_n)
+            else:
+                act = _PLAIN_ACTS[cfg.hidden_act](up)
+        act = act.to(h.dtype)
+        return x + _proj(self.down_proj, act, _maybe_quantize_act(act, self.down_proj, gate))
 
 
 class Llama(nn.Module):
@@ -300,7 +361,8 @@ class Llama(nn.Module):
         return self.embed_tokens(input_ids)
 
     def lm_head_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Vocab projection of final-normed hidden states."""
+        """Vocab projection of final-normed hidden states (an int8 head runs
+        W8A16, never W8A8)."""
         if self.lm_head is None:
             return F.linear(x, self.embed_tokens.weight)
         return self.lm_head(x)
@@ -315,6 +377,7 @@ class Llama(nn.Module):
         prefill: bool = False,
         return_hidden: bool = False,
         remat: bool = False,
+        w8a8_min_rows: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """Run the decoder. Returns (logits, updated_cache_or_None).
 
@@ -330,6 +393,9 @@ class Llama(nn.Module):
         ``remat=True`` on the no-cache forward keeps only each layer's input
         for the backward pass and recomputes the layer there (the JAX
         ``jax.checkpoint(scan_body)``).
+
+        ``w8a8_min_rows`` overrides the config's W8A8 row gate for this call
+        (the JAX engine's prefill-only config); 0 turns it off.
         """
         x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
         B, S, _ = x.shape
@@ -345,13 +411,14 @@ class Llama(nn.Module):
                 position_ids = torch.where(attention_mask == 0, 0, position_ids)
         inv_freq = rope_frequencies(self.cfg.head_dim_, self.cfg.rope_theta,
                                     self.cfg.rope_scaling, device=dev)
+        gate = self.cfg.w8a8_min_rows if w8a8_min_rows is None else w8a8_min_rows
         checkpointed = remat and kv_cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if checkpointed:
-                x = checkpoint(layer, x, position_ids, attention_mask, inv_freq,
-                               use_reentrant=False)
+                x = checkpoint(layer, x, position_ids, attention_mask, inv_freq, None, i, False,
+                               gate, use_reentrant=False)
             else:
-                x = layer(x, position_ids, attention_mask, inv_freq, kv_cache, i, prefill)
+                x = layer(x, position_ids, attention_mask, inv_freq, kv_cache, i, prefill, gate)
         x = self.final_norm(x)
         new_cache = None
         if kv_cache is not None:

@@ -28,7 +28,13 @@ Counterpart of ``multimeditron_tpu/serve/engine.py`` with ``kv_mode="paged"``:
   (prompt, seed) independent of k;
 - per-slot temperature / top-k / top-p sampling on the device, with JAX's
   threefry keys (``serve/prng.py``): every sampled token equals the JAX
-  engine's for the same logits.
+  engine's for the same logits;
+- the INT8 LLM (``quantize_llm``): the engine serves a quantised copy of the
+  model's decoder (``models/llama_quant.py``; W8A16 through kernel K9, fused
+  qkv and gate-up), leaving the caller's model as it is; with
+  ``w8a8_prefill`` every prefill call (group prefill and each chunk of a
+  chunked prompt) runs W8A8 once its padded rows reach 256, while decode
+  and verify stay W8A16.
 
 Scheduling state lives on the engine's device (the model's device); the host
 keeps mirrors for admission, page allocation and finish bookkeeping, and
@@ -37,8 +43,7 @@ one host sync (``active.any()``), where the JAX loop skips dead steps
 in-graph.
 
 Not ported yet (``NotImplementedError``): ``kv_mode="slab"``, tensor
-parallelism or an external mesh, the int8 LLM and W8A8 prefill, and
-``attn_impl``.
+parallelism or an external mesh, and ``attn_impl``.
 """
 
 from __future__ import annotations
@@ -51,11 +56,13 @@ import numpy as np
 import torch
 
 from multimeditron_torch.models.llama import init_kv_cache, init_paged_kv_cache
+from multimeditron_torch.models.llama_quant import is_quantized, quantize_llama
 from multimeditron_torch.models.multimodal import MultimodalModel
 from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
 from multimeditron_torch.serve import prng
 
 CACHE_KEYS = ("k", "v", "ring_k", "ring_v", "length", "page_table", "pages_length")
+W8A8_MIN_ROWS = 256  # the JAX engine's prefill row gate
 
 
 @dataclasses.dataclass
@@ -113,8 +120,6 @@ def _refuse_unported(cfg: EngineConfig, mesh) -> None:
     refused = [
         (cfg.kv_mode != "paged", f"kv_mode={cfg.kv_mode!r} (slab engine)"),
         (cfg.tp > 1 or mesh is not None, "tp > 1 or an external mesh (parallelism)"),
-        (cfg.quantize_llm, "quantize_llm (quantized paths)"),
-        (cfg.w8a8_prefill, "w8a8_prefill (quantized paths)"),
         (cfg.attn_impl is not None, "attn_impl (the port picks kernels by device)"),
     ]
     for bad, what in refused:
@@ -132,9 +137,16 @@ class ServingEngine:
     def __init__(self, model: MultimodalModel, cfg: EngineConfig, mesh=None):
         """``model`` holds the weights and lives on the engine's device."""
         _refuse_unported(cfg, mesh)
+        if cfg.w8a8_prefill and not cfg.quantize_llm:
+            raise ValueError("w8a8_prefill requires quantize_llm")
         self.model = model.eval()
         self.cfg = cfg
         self.device = next(model.parameters()).device
+        # the decoder every forward runs: a quantised copy with quantize_llm
+        # (fused qkv / gate-up; embedding and norms shared with the model)
+        self.llm = model.llm
+        if cfg.quantize_llm and not is_quantized(model.llm):
+            self.llm = quantize_llama(model.llm, fuse=True)
         llm = model.config.llm
         self.eos_id = model.config.eos_token_idx
         self.decode_chunk = max(1, cfg.decode_chunk)
@@ -301,6 +313,13 @@ class ServingEngine:
         sampled = prng.categorical(key, scaled).to(torch.int32)
         return torch.where(temps > 1e-6, sampled, greedy)
 
+    def _w8a8_gate(self, jax_rows: int) -> int:
+        """The W8A8 row gate of a prefill call whose JAX counterpart has
+        ``jax_rows`` padded rows: 1 (every row of the call passes) when that
+        call crosses the JAX engine's gate of 256, else 0 (W8A16). A chunk
+        cut at the slab's end keeps its bucket's decision."""
+        return int(self.cfg.w8a8_prefill and jax_rows >= W8A8_MIN_ROWS)
+
     def _next_seed(self) -> int:
         """Seed of the next prefill or fork sampler (the JAX ``_next_seed``)."""
         self._seed_ctr += 1
@@ -339,8 +358,9 @@ class ServingEngine:
         st, n, P = self.state, input_ids.shape[0], self.page_size
         embeds = self.model.embed(input_ids, mm_inputs)
         local = init_kv_cache(llm_cfg, n, bucket, dtype=st["k"].dtype, device=self.device)
-        hidden, local = self.model.llm(inputs_embeds=embeds, attention_mask=attention_mask,
-                                       kv_cache=local, prefill=True, return_hidden=True)
+        hidden, local = self.llm(inputs_embeds=embeds, attention_mask=attention_mask,
+                                 kv_cache=local, prefill=True, return_hidden=True,
+                                 w8a8_min_rows=self._w8a8_gate(n * bucket))
         lengths = attention_mask.sum(dim=-1).to(torch.int32)
         L, _, Hkv, _, Dh = local["k"].shape
         for name in ("k", "v"):
@@ -355,7 +375,7 @@ class ServingEngine:
                 # a bucket smaller than a page fills the first rows of one page
                 st[name][:, :, dest, :bucket] = local[name].permute(0, 2, 1, 3, 4)
         last_h = hidden[torch.arange(n, device=self.device), lengths.long() - 1]
-        last_logits = self.model.llm.lm_head_logits(last_h)
+        last_logits = self.llm.lm_head_logits(last_h)
         first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
         self._set_slots(slot_ids, lengths, first, budgets, temps, top_ps, page_rows,
                         input_ids)
@@ -403,7 +423,7 @@ class ServingEngine:
         mm = req.batch.get("mm_inputs") or {}
         if reserve:
             self._reserve_pages(req, slot)
-        dev, llm = self.device, self.model.llm
+        dev, llm = self.device, self.llm
         slab = self._get_chunk_slab()
         cap = slab["k"].shape[3]
         temps = torch.tensor([req.temperature], dtype=torch.float32, device=dev)
@@ -427,7 +447,8 @@ class ServingEngine:
                          "length": torch.tensor([start], dtype=torch.int32, device=dev)}
                 hidden, _ = llm(inputs_embeds=embeds,
                                 attention_mask=torch.from_numpy(chunk_mask).to(dev),
-                                kv_cache=cache, prefill=True, return_hidden=True)
+                                kv_cache=cache, prefill=True, return_hidden=True,
+                                w8a8_min_rows=self._w8a8_gate(bucket))
                 last_logits = llm.lm_head_logits(hidden[:, c - 1])
                 first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
                 self.n_prefill_calls += 1
@@ -536,7 +557,7 @@ class ServingEngine:
         fold. EOS, budget and capacity deactivate slots on the device.
         Returns the (chunk, slots) token matrix."""
         st, eos, max_len = self.state, self.eos_id, self.cfg.max_seq_len
-        llm = self.model.llm
+        llm = self.llm
         cache = {k: st[k] for k in CACHE_KEYS}
         tokens, active, remaining = st["tokens"], st["active"], st["remaining"]
         # the JAX chunk splits its key once per step, dead steps included
@@ -602,7 +623,7 @@ class ServingEngine:
         speculative ``one_step``). Returns the new (history, tokens, active,
         remaining) and the step's (B, k+1) tokens and emission mask."""
         st, cfg, k = self.state, self.cfg, self.spec_k
-        llm, eos, max_len = self.model.llm, self.eos_id, cfg.max_seq_len
+        llm, eos, max_len = self.llm, self.eos_id, cfg.max_seq_len
         B, Lh = history.shape
         length = cache["length"]
         block = torch.cat([tokens[:, None], self._draft(history, length, tokens)], dim=1)

@@ -9,7 +9,8 @@ Shapes are small and cover the edges the main path's shapes miss: tiny head
 dims, ragged sequences, GQA groups from 1 to 8 (16 in a verify block of 64
 rows per kv head), empty slots, fully masked attention rows, verify rows
 that see no key of a split, int8 kernels at ragged row counts, S = 257 and
-196, drowned attention rows. Gradients are compared relative to the largest
+196, drowned attention rows, K9 at ragged N and M, split K and both tile
+heights, and a quantised decoder on the card against the CPU. Gradients are compared relative to the largest
 gradient value (they are not of order 1): f32 1e-4, bf16 2e-2.
 """
 
@@ -446,3 +447,76 @@ def test_fused_int8_tower_card_matches_cpu(gen, dtype, tower):
     want = cpu.encode(values).float()
     cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
     assert torch.isfinite(got).all() and cos.item() >= 0.999
+
+
+# ----------------------------------------------------------------------
+# K9: the weight-only int8 matmul of the quantised decoder
+# ----------------------------------------------------------------------
+def _wo_case(gen, dtype, M, K, N):
+    from multimeditron_torch.ops import wo_matmul as tw
+
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    wq = _i8(gen, N, K)
+    ws = _unif(gen, 0.5, 1.5, N) * (0.5 / (73 * K ** 0.5))  # outputs of std ~0.5
+    return tw, x, wq, ws
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [
+    (1, 64, 128), (8, 256, 100),      # one chunk; N not a multiple of 8
+    (13, 1024, 385), (16, 4096, 4096),  # split K, ragged N and M
+    (17, 512, 4096), (40, 448, 6144),   # 64-row tiles (verify), K of 7 chunks
+    (300, 192, 200),                   # several m-blocks, ragged
+])
+def test_wo_matmul_kernel(gen, dtype, M, K, N):
+    tw, x, wq, ws = _wo_case(gen, dtype, M, K, N)
+    before = tw.launches["wo_matmul"]
+    got = tw.wo_matmul(x, wq, ws)
+    assert tw.launches["wo_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    _assert_close(got, tw.wo_matmul_plain(x, wq, ws), dtype)
+
+
+def test_wo_matmul_kernel_is_deterministic_and_takes_leading_dims(gen):
+    tw, x, wq, ws = _wo_case(gen, torch.bfloat16, 8, 4096, 4096)
+    assert tw.split_k(8, 4096, 4096, 132)[0] > 1  # this shape sums split-K slices
+    a = tw.wo_matmul(x, wq, ws)
+    b = tw.wo_matmul(x.reshape(2, 4, 4096), wq, ws)
+    torch.cuda.synchronize()
+    assert b.shape == (2, 4, 4096) and torch.equal(a, b.reshape(8, 4096))
+
+
+def test_wo_matmul_kernel_refuses_what_it_does_not_take(gen):
+    tw, x, wq, ws = _wo_case(gen, torch.float32, 4, 96, 128)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tw.wo_matmul(x, wq, ws)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tw.wo_matmul(torch.randn(4, 64, device="cuda", dtype=torch.float16), wq[:, :64].contiguous(),
+                     ws)
+
+
+@pytest.mark.parametrize("gate", [0, 1])
+def test_quantized_llama_card_matches_cpu(gen, gate):
+    """A tiny float32 decoder quantised on the CPU and copied to the card:
+    W8A16 (K9) and, with the gate open, W8A8 logits agree."""
+    from multimeditron_torch.models import llama as tl
+    from multimeditron_torch.models import llama_quant as tq
+    from multimeditron_torch.ops import wo_matmul as tw
+
+    cfg = tl.LlamaConfig(vocab_size=300, hidden_size=256, intermediate_size=512, num_layers=2,
+                         num_heads=4, num_kv_heads=2, dtype=torch.float32)  # head dim 64
+    cpu = tl.Llama(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    qcpu = tq.quantize_llama(cpu)
+    card = tl.Llama(cfg, device="cuda")
+    tq.set_int8_layout(card)
+    card.load_state_dict(qcpu.state_dict())
+    # 16 rows: at this length no int8 activation code lands on a rounding
+    # boundary that the card's and the CPU's float32 sums round apart
+    ids = torch.randint(0, 300, (2, 8), generator=torch.Generator().manual_seed(1))
+    before = tw.launches["wo_matmul"]
+    with torch.inference_mode():
+        got, _ = card(input_ids=ids.cuda(), w8a8_min_rows=gate)
+        want, _ = qcpu(input_ids=ids, w8a8_min_rows=gate)
+    assert tw.launches["wo_matmul"] - before == (1 if gate else 2 * 4 + 1)
+    _assert_close(got.cpu(), want, torch.float32)

@@ -127,12 +127,19 @@ def test_oversized_and_long_prompts_rejected(pair):
 
 @pytest.mark.parametrize("option", [
     dict(kv_mode="slab"), dict(speculative_k=2, kv_mode="slab"), dict(tp=2),
-    dict(quantize_llm=True), dict(w8a8_prefill=True), dict(prefill_group_cap=1, tp=2),
-    dict(attn_impl="xla"),
+    dict(quantize_llm=True, tp=2), dict(quantize_llm=True, w8a8_prefill=True, kv_mode="slab"),
+    dict(prefill_group_cap=1, tp=2), dict(attn_impl="xla"),
 ])
 def test_unported_engine_options_raise(pair, option):
     with pytest.raises(NotImplementedError, match="not ported"):
         _engine(pair[0], **option)
+
+
+def test_w8a8_prefill_without_quantize_llm_raises(pair):
+    """As in the JAX engine; the quantised engine itself runs in
+    tests/test_torch_llama_quant.py."""
+    with pytest.raises(ValueError, match="w8a8_prefill requires quantize_llm"):
+        _engine(pair[0], w8a8_prefill=True)
 
 
 def test_forked_groups_raise(pair):

@@ -19,7 +19,7 @@ from multimeditron_torch.profiling import ThroughputMeter, device_peak_flops
 from tests.test_multimodal import tiny_mm_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "PIL", "yaml", "transformers")
+BLOCKED = ("jax", "jaxlib", "PIL", "yaml", "transformers", "click")
 PORT_SOURCES = list((ROOT / "multimeditron_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _PROBE = f"""
@@ -32,6 +32,8 @@ import multimeditron_torch.serve.engine
 import multimeditron_torch.serve.prng
 import multimeditron_torch.ops.flash_attention
 import multimeditron_torch.ops.vit_int8_fused
+import multimeditron_torch.ops.wo_matmul
+import multimeditron_torch.models.llama_quant
 import multimeditron_torch.models.vit_quant
 import multimeditron_torch.models.projector
 import multimeditron_torch.modalities.image_clip

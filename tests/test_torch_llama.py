@@ -171,7 +171,7 @@ def test_convert_roundtrip():
 
 @pytest.mark.parametrize("option", [
     dict(sequence_parallel=True), dict(ring_attention=True),
-    dict(pipeline_parallel=2), dict(w8a8_min_rows=256),
+    dict(pipeline_parallel=2), dict(mlp_gate=False, hidden_act="tanh"),
 ])
 def test_unported_options_raise(option):
     cfg = tl.LlamaConfig(vocab_size=32, hidden_size=16, intermediate_size=32,

@@ -105,15 +105,20 @@ def test_convert_roundtrip_and_int8_refusal():
         qback = export_jax_params(qmod)
         assert jax.tree.structure(qback) == jax.tree.structure(qparams)
         jax.tree.map(np.testing.assert_array_equal, qback, qparams)
-    # an int8 LLM tree (quantize_llm) is still refused, naming the ROADMAP item
+    # a whole multimodal tree with an int8 LLM (quantize_llm) round-trips too
     from multimeditron_tpu.models.llama_quant import quantize_llama_params
     from multimeditron_tpu.models.multimodal import MultimodalModel as JModel
+    from multimeditron_torch.models.llama import Int8Linear
     from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
     from tests.test_multimodal import tiny_mm_config
 
     jmodel = JModel(tiny_mm_config())
     mm = jmodel.init_params(jax.random.PRNGKey(8))
     mm["llm"] = quantize_llama_params(mm["llm"], jmodel.config.llm)
+    mm = jax.tree.map(np.asarray, mm)
     tmodel = MultimodalModel(MultimodalConfig.from_dict(jmodel.config.to_dict()), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        load_jax_params(tmodel, jax.tree.map(np.asarray, mm))
+    load_jax_params(tmodel, mm)
+    assert isinstance(tmodel.llm.layers[0].qkv, Int8Linear)
+    mback = export_jax_params(tmodel)
+    assert jax.tree.structure(mback) == jax.tree.structure(mm)
+    jax.tree.map(np.testing.assert_array_equal, mback, mm)
