@@ -13,12 +13,16 @@ Phases, each of which raises on failure (non-zero exit):
    decode attention, K6 ring verify attention, K5 ring fold, K1 flash forward,
    K2a/K2b flash backward) against its plain PyTorch twin on the card, at the
    main paths' shapes, in float32 and bfloat16; the W8A8 ViT kernels (K7a
-   ln_quant, K7g qkv_attn_int8, K7c oproj_ln_quant, K7d fc1_gelu_quant, K7e
-   fc2_res_ln_quant) at the ViT-L/14 serving shape (8 images, M = 2,056 rows)
-   and encode shape (256 images, M = 65,792). Each with CUDA-event timings
-   around the wrapper, its device time from torch.profiler (the kernels' own
-   CUDA time per call), the least time the card could take (bytes over 3.35
-   TB/s or operations over the type's peak, the larger) and, where one
+   ln_quant, K7g qkv_attn_int8 in each consume path: int8 out, float out,
+   static stabiliser without fuse_l, row max; K7b qkv_int8 with bf16 and int8
+   outputs, K7c oproj_ln_quant with an int8 and a bf16 o, K7d fc1_gelu_quant,
+   K7e fc2_res_ln_quant, K7f mlp_fused, also against the split pair, and K10
+   encoder_attention_int8) at the ViT-L/14 serving shape (8 images,
+   M = 2,056 rows) and encode shape (256 images, M = 65,792). Each with
+   CUDA-event timings around the wrapper, its device time from
+   torch.profiler (the kernels' own CUDA time per call), the least time the
+   card could take (bytes over 3.35 TB/s or operations over the type's
+   peak, the larger) and, where one
    PyTorch call computes the same function or a named part of it, that
    call's time;
 4. serving end to end in float32: the serving engine on the card against the
@@ -57,7 +61,17 @@ Phases, each of which raises on failure (non-zero exit):
    w8a8_prefill=True, phase 5's run and phase 8's speculative run (k = 4):
    K9 launches 129 times a decode or verify step, W8A8 runs 4 x 32 products
    a prefill call and none in decode; the int8 decoder's logits against the
-   bf16 model's on one probe prompt (W8A16, and W8A8 with the gate open).
+   bf16 model's on one probe prompt (W8A16, and W8A8 with the gate open);
+12. the other calibrations of the fused int8 tower at full width: the
+   phase-5 tower smoothed and calibrated on 16 uint8 images as (L, 4)
+   (calibrate_act_scales) and as (L, 7) (calibrate_vit_int8_fused cut to
+   seven columns), each exported and loaded back through load_jax_params,
+   8 batches of 256 images through ImageModality.encode (img/s, cosine
+   against bf16, fails below 0.99) and phase 5's serving run: (L, 4)
+   launches K7b and K3 and no K7g, (L, 7) K7g's row-max form and no K3.
+   Then one batch each of the (L, 8) tower with int8_o=False and with
+   fuse_l=False, and one of the ops without a caller composed (K7b with int8
+   outputs, K10, K7c with a float o, K7f), each cosine >= 0.99.
 
 Phase 3 also holds K9 (the weight-only int8 matmul) against its twin at the
 Llama-3.1-8B projection shapes (M = 8, 40 and 4,096, and the lm_head at
@@ -92,6 +106,13 @@ from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
 from multimeditron_torch.ops import vit_int8_fused as v8
 from multimeditron_torch.ops import wo_matmul as wo
+from multimeditron_torch.convert import export_jax_params, load_jax_params
+from multimeditron_torch.models.vit_quant import (
+    calibrate_act_scales,
+    embed_patches,
+    finish,
+    vit_params_tree,
+)
 from multimeditron_torch.models.projector import (
     mlp_projector_forward_int8,
     mlp_projector_tree,
@@ -152,13 +173,52 @@ KERNELS = {
     "wo_matmul": dict(
         module=wo, source="multimeditron_torch/csrc/wo_matmul.cu",
         replaces="multimeditron_tpu/ops/wo_matmul.py:31"),
+    "qkv_int8": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_gemm.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:111"),
+    "qkv_attn_int8_rowmax": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_attention.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:446"),
+    "qkv_attn_int8_static": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_attention.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:446"),
+    "qkv_attn_int8_float_out": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_attention.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:369"),
+    "oproj_ln_quant_float": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:134"),
+    "mlp_fused": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:179"),
+    "encoder_attention_int8": dict(
+        module=enc, source="multimeditron_torch/csrc/encoder_attention_int8.cu",
+        replaces="multimeditron_tpu/ops/encoder_attention.py:170"),
 }
 SERVING = ("encoder_attention", "ring_decode_attention", "fold_ring_into_pages")
 SPEC_SERVING = ("encoder_attention", "ring_verify_attention", "fold_ring_into_pages")
 TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 INT8_TOWER = ("ln_quant", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
               "fc2_res_ln_quant")
-INT8_SERVING = INT8_TOWER + ("ring_decode_attention", "fold_ring_into_pages")
+# each image tower's kernels: ln_quant once a forward, the others once a layer;
+# every other tower kernel must not launch
+TOWERS = {
+    "bf16": ((), ("encoder_attention",)),
+    "L8": (("ln_quant",), INT8_TOWER[1:]),
+    "L4": (("ln_quant",), ("qkv_int8", "encoder_attention", "oproj_ln_quant_float",
+                           "fc1_gelu_quant", "fc2_res_ln_quant")),
+    "L7": (("ln_quant",), ("qkv_attn_int8_rowmax", "oproj_ln_quant_float", "fc1_gelu_quant",
+                           "fc2_res_ln_quant")),
+    "L8_float_out": (("ln_quant",), ("qkv_attn_int8_float_out", "oproj_ln_quant_float",
+                                     "fc1_gelu_quant", "fc2_res_ln_quant")),
+    "L8_no_fuse_l": (("ln_quant",), ("qkv_attn_int8_static", "oproj_ln_quant_float",
+                                     "fc1_gelu_quant", "fc2_res_ln_quant")),
+}
+TOWER_KERNELS = ("encoder_attention", "ln_quant", "qkv_int8", "qkv_attn_int8",
+                 "qkv_attn_int8_rowmax", "qkv_attn_int8_static", "qkv_attn_int8_float_out",
+                 "oproj_ln_quant", "oproj_ln_quant_float", "fc1_gelu_quant", "fc2_res_ln_quant",
+                 "mlp_fused", "encoder_attention_int8")
+DECODE = ("ring_decode_attention", "fold_ring_into_pages")
 # Llama-3.1-8B projections, (K, N), in a decode step's order; 4 K9 calls a
 # layer and the lm_head make 129 a step
 LLAMA_8B_PROJ = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
@@ -168,12 +228,35 @@ K9_PER_STEP = 4 * 32 + 1
 W8A8_PER_PREFILL = 4 * 32
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def phase(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{msg} (t = {time.perf_counter() - T_START:.0f} s)")
+
+
 def launch_counts(names=SERVING) -> dict:
     return {name: KERNELS[name]["module"].launches[name] for name in names}
+
+
+def check_tower_launches(tower: str, counts: dict, forwards: int, layers: int = 24) -> None:
+    """The kernels of ``tower`` ran at least once (ln_quant) or ``layers``
+    times (the others) a forward, over ``forwards`` forwards; every other
+    tower kernel not at all. Removes the absent kernels from ``counts``."""
+    once, per_layer = TOWERS[tower]
+    for name in TOWER_KERNELS:
+        if name in once + per_layer:
+            need = forwards * (1 if name in once else layers)
+            if counts[name] < need:
+                raise AssertionError(f"{tower} tower: {name} launched {counts[name]} times, "
+                                     f"fewer than {need}: {counts}")
+        elif counts.pop(name, 0):
+            raise AssertionError(f"{tower} tower: {name} launched: {counts}")
 
 
 def reset_launch_counts(names=tuple(KERNELS)) -> None:
@@ -209,22 +292,31 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = 10) -> float:
+def device_ms(fn, n: int = 10, tries: int = 3):
     """Device time of ``fn`` per call: the CUDA time of every kernel that the
-    calls launch, summed from a torch.profiler trace of ``n`` calls, over n."""
+    calls launch, summed from a torch.profiler trace of ``n`` calls, over n.
+    Kineto now and then returns a trace that holds no device event at all;
+    such a trace is taken again, up to ``tries`` times, and after that the
+    time is None ("not measured": the CUDA-event ``ms`` stands alone)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / n
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+        log(f"  torch.profiler recorded no device time (trace {attempt} of {tries})")
+    return None
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -566,6 +658,7 @@ def int8_case(gen, B: int) -> dict:
         qkv_b=0.1 * torch.randn(3 * D, generator=gen, device="cuda"),
         scales6=[1.0, 1 / sq, 1 / sq, 6.0, sq * sq * 64 ** -0.5, 127 / 0.6],
         o8=i8(M, D), wo=i8(D, D), wo_s=scale(D, D),
+        o16=(0.5 * torch.randn(M, D, generator=gen, device="cuda")).to(torch.bfloat16),
         w1=i8(FF, D), w1_s=unif(0.5, 1.5, FF) / (127 * 40 * D ** 0.5),
         h8=i8(M, FF), w2=i8(D, FF), w2_s=scale(D, FF),
         bD=0.1 * torch.randn(D, generator=gen, device="cuda"),
@@ -624,16 +717,103 @@ def check_int8_kernels(gen, B: int) -> dict:
                "partial: torch._int_mm, the int8 product alone",
                M * K + D * K + 2 * 2 * M * D + M * D + 16 * D, 2 * M * K * D)
 
+    w1t = c["w1"].t()
+
+    # K7b: float (the (L, 4) layer's bf16) and int8 (static q/k/v scales) outputs
+    xq2d, wqkv_t = c["xq"].view(M, D), c["wqkv"].reshape(3 * D, D).t()
+    b_args = (xq2d, c["wqkv"], c["wqkv_s"], c["qkv_b"], 1.3)
+    inv3 = [v8.f32_inv(x) for x in (0.02, 0.03, 0.025)]
+    err = max(check_ulp(f"K7b bf16 {part} {tag}", got, want) for part, got, want in
+              zip("qkv", v8.qkv_int8(*b_args), v8.qkv_int8_plain(*b_args, torch.bfloat16)))
+    for part, got, want in zip("qkv", v8.qkv_int8(*b_args, qkv_scales=(0.02, 0.03, 0.025)),
+                               v8.qkv_int8_plain(*b_args, torch.int8, inv3)):
+        check_int8(f"K7b int8 {part} {tag}", got, want)
+    run = lambda: v8.qkv_int8(*b_args, out_dtype=torch.bfloat16)  # noqa: E731
+    record("qkv_int8", err, run, lambda: v8.qkv_int8_plain(*b_args, torch.bfloat16),
+           lambda: torch._int_mm(xq2d, wqkv_t), "partial: torch._int_mm, the int8 product alone",
+           M * D + 3 * D * D + 3 * 2 * M * D + 24 * D, 2 * M * D * 3 * D)
+    out["qkv_int8"]["int8_out_ms"] = time_ms(
+        lambda: v8.qkv_int8(*b_args, qkv_scales=(0.02, 0.03, 0.025)))
+
+    # K7g's other consume paths, bf16 out (the residual stream's dtype)
+    for name, mode, kw in (("qkv_attn_int8_rowmax", "rowmax", dict(static_smax=False)),
+                           ("qkv_attn_int8_static", "static", dict(fuse_l=False)),
+                           ("qkv_attn_int8_float_out", "fused", {})):
+        run = lambda kw=kw: v8.qkv_attn_int8(*g_args, out_dtype=torch.bfloat16, **kw)  # noqa: E731
+        plain = lambda mode=mode: v8.qkv_attn_int8_plain(  # noqa: E731
+            *g_args, mode=mode, out_dtype=torch.bfloat16)
+        err = check_close(f"{name} {tag}", run(), plain(), TOL[torch.bfloat16])
+        record(name, err, run, plain, lambda: F.scaled_dot_product_attention(qh, kh, vh),
+               "partial: SDPA on bf16 q/k/v, the attention alone",
+               M * D + 3 * D * D + 24 * D + 2 * M * D,
+               {torch.int8: 2 * M * D * 3 * D + 2 * B * H * S * S * 64,
+                torch.bfloat16: 2 * B * H * S * S * 64})
+
+    # K7c with a bf16 o, quantised by 1 / s1 in the kernel
+    s1 = 1.5 / 127
+    args = (c["o16"], c["x"], c["wo"], c["wo_s"], c["bD"], c["lnw"], c["lnb"], s1, 0.025, 1e-5)
+    run = lambda: v8.oproj_ln_quant(*args)  # noqa: E731
+
+    def plain():
+        o8 = torch.clamp(torch.round(c["o16"].float() * v8.f32_inv(s1)), -127, 127)
+        return v8.res_ln_quant_plain(o8.to(torch.int8), *args[1:8], v8.f32_inv(0.025), 1e-5)
+
+    (xo, xq), (xo_ref, xq_ref) = run(), plain()
+    check_ulp(f"oproj_ln_quant_float x' {tag}", xo, xo_ref)
+    err = check_int8(f"oproj_ln_quant_float xq {tag}", xq, xq_ref)
+    wo_t = c["wo"].t()
+    record("oproj_ln_quant_float", err, run, plain,
+           lambda: torch._int_mm(c["o8"], wo_t), "partial: torch._int_mm, the int8 product alone",
+           2 * M * D + D * D + 2 * 2 * M * D + M * D + 16 * D, 2 * M * D * D)
+
+    # K7f, against its twin and the split pair K7d + K7e on the card (same bits)
+    f_args = (c["o8"], c["x"], c["w1"], c["w1_s"], c["bF"], c["w2"], c["w2_s"], c["bD"],
+              c["lnw"], c["lnb"])
+    f_scal = (1.1, 0.04, 0.03, 1e-5)
+    run = lambda: v8.mlp_fused(*f_args, *f_scal, "quick_gelu")  # noqa: E731
+    plain = lambda: v8.mlp_fused_plain(  # noqa: E731
+        *f_args, 1.1, v8.f32_inv(0.04), 0.04, v8.f32_inv(0.03), 1e-5, "quick_gelu")
+
+    def split_pair():
+        hq = v8.fc1_gelu_quant(c["o8"], c["w1"], c["w1_s"], c["bF"], 1.1, 0.04, "quick_gelu")
+        return v8.fc2_res_ln_quant(hq, c["x"], c["w2"], c["w2_s"], c["bD"], c["lnw"], c["lnb"],
+                                   0.04, 0.03, 1e-5)
+
+    (xo, xq), (xo_ref, xq_ref), (xo_pair, xq_pair) = run(), plain(), split_pair()
+    check_ulp(f"mlp_fused x'' {tag}", xo, xo_ref)
+    err = check_int8(f"mlp_fused xq {tag}", xq, xq_ref)
+    if not (torch.equal(xo, xo_pair) and torch.equal(xq, xq_pair)):
+        raise AssertionError("K7f differs from the split pair K7d + K7e on the card")
+    w2t = c["w2"].t()
+    record("mlp_fused", err, run, plain,
+           lambda: (torch._int_mm(c["o8"], w1t), torch._int_mm(c["h8"], w2t)),
+           "partial: torch._int_mm, the two int8 products alone",
+           M * D + 2 * FF * D + 2 * 2 * M * D + M * D + 8 * FF + 16 * D, 2 * 2 * M * D * FF)
+    out["mlp_fused"]["split_pair_ms"] = time_ms(split_pair)
+    out["mlp_fused"]["split_pair_device_ms"] = device_ms(split_pair)
+
+    # K10 on int8 q, k, v, bf16 out
+    q8, k8, v8_ = c["xq"], c["o8"].view(B, S, D), c["h8"][:, :D].contiguous().view(B, S, D)
+    sq = 2.0 / 127
+    qk, pv = sq * sq * 64 ** -0.5, 1.0 / 127 ** 2  # v = v8 / 127: outputs of order 1
+    run = lambda: enc.encoder_attention_int8(q8, k8, v8_, H, qk, pv)  # noqa: E731
+    plain = lambda: enc.encoder_attention_int8_plain(  # noqa: E731
+        q8, k8, v8_, H, v8.f32(qk), v8.f32(pv), S, torch.bfloat16)
+    err = check_close(f"K10 {tag}", run(), plain(), TOL[torch.bfloat16])
+    record("encoder_attention_int8", err, run, plain,
+           lambda: F.scaled_dot_product_attention(qh, kh, vh),
+           "partial: SDPA on bf16 q/k/v of the same shape", 3 * M * D + 2 * M * D,
+           2 * 2 * B * H * S * S * 64)
+
     # K7d
     args = (c["o8"], c["w1"], c["w1_s"], c["bF"], 1.1, 0.04, "quick_gelu_approx")
     run = lambda: v8.fc1_gelu_quant(*args)  # noqa: E731
     plain = lambda: v8.fc1_gelu_quant_plain(*args[:5], v8.f32_inv(0.04), args[6])  # noqa: E731
-    w1t = c["w1"].t()
     record("fc1_gelu_quant", check_int8(f"K7d {tag}", run(), plain()), run, plain,
            lambda: torch._int_mm(c["o8"], w1t), "partial: torch._int_mm, the int8 product alone",
            M * D + FF * D + M * FF + 8 * FF, 2 * M * D * FF)
     for name, r in out.items():
-        log(f"  {name} {tag}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+        log(f"  {name} {tag}: kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"library {r['library_ms']:.4f} ms ({r['library_note']})")
     return out
@@ -671,7 +851,7 @@ def check_wo_matmul(gen) -> dict:
                 # x and the int8 weight read, its scales read, the output written
                 bytes=M * K * elt + N * K + 4 * N + M * N * elt, ops=2 * M * K * N,
                 **bound(dtype, M * K * elt + N * K + 4 * N + M * N * elt, 2 * M * K * N))
-            log(f"  K9 {t} {name} M={M}: kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+            log(f"  K9 {t} {name} M={M}: kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
                 f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             del w, x, deq
@@ -681,6 +861,8 @@ def check_wo_matmul(gen) -> dict:
     step.append((1, per["bfloat16 lm_head M=8"]))
 
     def total(key):
+        if any(r[key] is None for _, r in step):
+            return None
         return sum(k * r[key] for k, r in step)
 
     out = dict(max_abs_err=max(r["max_abs_err"] for key, r in per.items()
@@ -690,7 +872,7 @@ def check_wo_matmul(gen) -> dict:
                measured_as="a bf16 decode step at M = 8: 32 x (qkv, o, gate-up, down) + lm_head",
                shapes=per)
     log(f"  K9 decode step (129 calls, bf16, M = 8): kernel {out['ms']:.4f} ms (device "
-        f"{out['device_ms']:.4f}), plain {out['plain_ms']:.4f}, library {out['library_ms']:.4f}, "
+        f"{fmt_ms(out['device_ms'])}), plain {out['plain_ms']:.4f}, library {out['library_ms']:.4f}, "
         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
     return out
 
@@ -842,10 +1024,10 @@ def logit_fidelity(ref: torch.Tensor, got: torch.Tensor) -> dict:
                 top1_agreement=(ref.argmax(-1) == got.argmax(-1)).float().mean().item())
 
 
-def run_full_width(model: MultimodalModel, int8_tower: bool = False,
-                   int8_llm: bool = False) -> dict:
-    """Phase 5 (float tower: K3), with ``int8_tower`` phase 10 (the fused
-    int8 tower: K7, and no K3), with ``int8_llm`` phase 11 (quantize_llm +
+def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool = False) -> dict:
+    """Phase 5 (``tower`` "bf16", the float tower: K3); phase 10 ("L8", the
+    fused int8 tower: K7, and no K3); phase 12 ("L4": K7b and K3, "L7":
+    K7g's row-max form); with ``int8_llm`` phase 11 (quantize_llm +
     w8a8_prefill: K9 and W8A8)."""
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=640, prefill_buckets=(512,), page_size=128,
@@ -871,7 +1053,7 @@ def run_full_width(model: MultimodalModel, int8_tower: bool = False,
     reqs = [engine.submit(b, max_new_tokens=64) for b in batches]
     engine.run()
     wall = time.time() - t0
-    counts = launch_counts(INT8_SERVING + ("encoder_attention",) if int8_tower else SERVING)
+    counts = launch_counts(TOWER_KERNELS + DECODE)
     if int8_llm:
         counts.update(wo_matmul=wo.launches["wo_matmul"], w8a8_matmul=wo.launches["w8a8_matmul"])
     work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=engine.n_decode_steps,
@@ -884,16 +1066,7 @@ def run_full_width(model: MultimodalModel, int8_tower: bool = False,
                                  f"{len(r.tokens)} tokens")
         if not all(0 <= t < vocab for t in r.tokens):
             raise AssertionError(f"request {r.request_id}: token outside the vocab")
-    if int8_tower:
-        if counts.pop("encoder_attention"):
-            raise AssertionError("K3 launched although the tower is int8")
-        if counts["ln_quant"] < work["prefill_calls"]:
-            raise AssertionError("K7a launched fewer times than there were prefill calls")
-        for name in INT8_TOWER[1:]:
-            if counts[name] < 24 * work["prefill_calls"]:
-                raise AssertionError(f"{name} launched fewer than 24 times per prefill call")
-    elif counts["encoder_attention"] < 24 * work["prefill_calls"]:
-        raise AssertionError("K3 launched fewer than 24 times per prefill call")
+    check_tower_launches(tower, counts, work["prefill_calls"])
     if counts["ring_decode_attention"] < 32 * work["decode_steps"]:
         raise AssertionError("K4 launched fewer than 32 times per decode step")
     if counts["fold_ring_into_pages"] < work["decode_chunks"]:
@@ -1262,7 +1435,9 @@ def busy_profile(fn) -> dict:
             key = name.split("<")[0].split("(")[0].strip()[-48:]
             by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    return dict(wall_ms=wall_us / 1e3, busy_share=busy / wall_us, top_kernels_ms=top)
+    # an empty trace (see device_ms) measured nothing: no busy share
+    return dict(wall_ms=wall_us / 1e3, busy_share=busy / wall_us if spans else None,
+                top_kernels_ms=top)
 
 
 def run_int8_encode(model: MultimodalModel, n_batches: int = 8, batch: int = 256) -> dict:
@@ -1330,6 +1505,155 @@ def run_int8_encode(model: MultimodalModel, n_batches: int = 8, batch: int = 256
                 profile_int8=prof_int8, profile_bf16=prof_bf16, launches=counts)
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the other calibrations of the fused int8 tower at full width
+# ----------------------------------------------------------------------
+def encode_unwired(packed: dict, cfg, values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The fused tower's ops that have no caller, composed into a tower: K7b
+    with int8 q, k, v at the static scales of an (L, 7) calibration ->
+    K10 -> K7c (float o) -> K7f, after K7a; NHWC ``values`` -> features."""
+    sc = scales.float().cpu().numpy()
+    D, H, eps, L = cfg.hidden_size, cfg.num_heads, cfg.layer_norm_eps, sc.shape[0]
+    x = embed_patches(packed, cfg, values)
+    B, S, _ = x.shape
+    M = B * S
+    x2d = x.reshape(M, D).contiguous()
+    xq = v8.ln_quant(x2d, packed["ln1_w"][0], packed["ln1_b"][0], float(sc[0, 0]), eps)
+    for i in range(L):
+        s0, s1, s2, s3, sq, sk, sv = (float(v) for v in sc[i, :7])
+        q, k, v = v8.qkv_int8(xq, packed["wqkv_q"][i], packed["wqkv_s"][i], packed["qkv_b"][i],
+                              s0, qkv_scales=(sq, sk, sv))
+        qk = np.float32(sq) * np.float32(sk) * np.float32((D // H) ** -0.5)
+        o = enc.encoder_attention_int8(q.view(B, S, D), k.view(B, S, D), v.view(B, S, D), H,
+                                       qk, np.float32(sv) / np.float32(127), out_dtype=x2d.dtype)
+        xp, xq2 = v8.oproj_ln_quant(o.view(M, D), x2d, packed["wo_q"][i], packed["wo_s"][i],
+                                    packed["o_b"][i], packed["ln2_w"][i], packed["ln2_b"][i],
+                                    s1, s2, eps)
+        x2d, xq = v8.mlp_fused(xq2, xp, packed["w1_q"][i], packed["w1_s"][i], packed["b1"][i],
+                               packed["w2_q"][i], packed["w2_s"][i], packed["b2"][i],
+                               packed["ln1n_w"][i], packed["ln1n_b"][i], s2, s3,
+                               float(sc[(i + 1) % L, 0]), eps, cfg.hidden_act)
+    return finish(packed, cfg, x2d.view(B, S, D), True)
+
+
+def cosines(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    a, b = a.float(), b.float()
+    return (F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item(),
+            F.cosine_similarity(a, b, dim=-1).mean().item())
+
+
+def run_other_calibrations(model: MultimodalModel, n_batches: int = 8, batch: int = 256) -> dict:
+    """Phase 12: the phase-5 model's ViT-L/14 tower, smoothed, packed and
+    calibrated on 16 uint8 images as (L, 4) (calibrate_act_scales) and as
+    (L, 7) (calibrate_vit_int8_fused cut to seven columns); each tree is
+    exported as a JAX checkpoint holds it and loaded back through
+    load_jax_params, encodes 8 batches of 256 images through
+    ImageModality.encode (img/s, cosine against the bf16 tower + projector)
+    and serves phase 5's requests. Then one batch each of the (L, 8) tower
+    with int8_o=False and with fuse_l=False, and one of the ops without a
+    caller composed (encode_unwired: K7b int8, K10, K7f)."""
+    mod = model.modalities["image"]
+    cfg = mod.vit_cfg
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    size, layers = cfg.image_size, cfg.num_layers
+    feats_shape = (batch, (size // cfg.patch_size) ** 2, model.config.llm.hidden_size)
+
+    def images(n):
+        return torch.randint(0, 256, (n, size, size, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        calib = mod._normalize_wire(images(16))
+        params = v8.smooth_vit_params(vit_params_tree(mod.embedder), cfg, calib)
+        packed = v8.pack_vit_int8_fused(params)
+        scales8 = v8.calibrate_vit_int8_fused(params, cfg, calib)
+        scales = {"L4": calibrate_act_scales(params, cfg, calib),
+                  "L7": scales8[:, :7].contiguous()}
+    del params
+    torch.cuda.synchronize()
+    out = dict(calibration_s=time.perf_counter() - t0)
+    batches = [images(batch) for _ in range(n_batches)]
+    with torch.inference_mode():
+        ref = mod.projector(mod.embedder(mod._normalize_wire(batches[0]), drop_cls=True))
+
+    def check(name, a, counts, forwards):
+        check_tower_launches(name, counts, forwards, layers)
+        if a.shape != feats_shape or not torch.isfinite(a.float()).all():
+            raise AssertionError(f"{name}: encode output {tuple(a.shape)} not finite/shaped")
+        cos, tok = cosines(a, ref)
+        if not cos >= 0.99:
+            raise AssertionError(f"{name}: encode cosine {cos} against bf16 below 0.99")
+        return cos, tok
+
+    for name in ("L4", "L7"):
+        mod.embedder_q = v8.ViTInt8Fused(cfg, packed, scales[name])
+        t0 = time.perf_counter()
+        tree = export_jax_params(mod)
+        mod.embedder_q = None
+        load_jax_params(mod, tree)
+        del tree
+        convert_s = time.perf_counter() - t0
+        tower = mod.embedder_q
+        cols = scales[name].shape[1]
+        if (not isinstance(tower, v8.ViTInt8Fused)
+                or tuple(tower.act_scales.shape) != (layers, cols)):
+            raise AssertionError(f"{name}: load_jax_params gave {type(tower).__name__}")
+        with torch.inference_mode():
+            mod.encode(batches[0])  # warm-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for x in batches:
+                mod.encode(x)
+            torch.cuda.synchronize()
+            rate = n_batches * batch / (time.perf_counter() - t0)
+            counts = launch_counts(TOWER_KERNELS)
+            a = mod.encode(batches[0])
+        cos, tok = check(name, a, counts, n_batches)
+        log(f"  {name}: export + load_jax_params {convert_s:.2f} s; encode {rate:.1f} img/s, "
+            f"cosine vs bf16 {cos:.6f} (per token {tok:.6f}); launches {counts}")
+        del a
+        serving = run_full_width(model, tower=name)
+        out[name] = dict(img_per_s=rate, cosine=cos, token_cosine_mean=tok, convert_s=convert_s,
+                         launches=counts, serving=serving)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mod.embedder_q = None
+
+    values = mod._normalize_wire(batches[0])
+    legs = (("L8_float_out", lambda: v8.vit_forward_int8_fused(packed, cfg, values, scales8,
+                                                               int8_o=False)),
+            ("L8_no_fuse_l", lambda: v8.vit_forward_int8_fused(packed, cfg, values, scales8,
+                                                               fuse_l=False)),
+            ("unwired", lambda: encode_unwired(packed, cfg, values, scales["L7"])))
+    for name, forward in legs:
+        with torch.inference_mode():
+            forward()  # warm-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            a = mod.projector(forward())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts(TOWER_KERNELS)
+        if name == "unwired":
+            want = {"ln_quant": 1, "qkv_int8": layers, "encoder_attention_int8": layers,
+                    "oproj_ln_quant_float": layers, "mlp_fused": layers}
+            if {n: c for n, c in counts.items() if c} != want:
+                raise AssertionError(f"unwired: launches {counts}, expected {want}")
+            cos, tok = cosines(a, ref)
+            if not (a.shape == ref.shape and torch.isfinite(a.float()).all() and cos >= 0.99):
+                raise AssertionError(f"unwired: cosine {cos} against bf16 below 0.99")
+            counts = want
+        else:
+            cos, tok = check(name, a, counts, 1)
+        log(f"  {name}: one batch of {batch} in {wall * 1e3:.1f} ms, cosine vs bf16 {cos:.6f} "
+            f"(per token {tok:.6f}); launches {counts}")
+        out[name] = dict(batch_ms=wall * 1e3, cosine=cos, token_cosine_mean=tok, launches=counts)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1339,7 +1663,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    log(f"[1] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    phase(f"[1] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"  nvidia-smi: {smi}")
 
@@ -1347,10 +1671,10 @@ def main() -> int:
     _build.library()
     nvcc = ("reused an existing build" if _build.build_seconds is None
             else f"nvcc {_build.build_seconds:.1f} s")
-    log(f"[2] build: {time.perf_counter() - t0:.1f} s ({nvcc}) -> "
+    phase(f"[2] build: {time.perf_counter() - t0:.1f} s ({nvcc}) -> "
         f"{_build.library_path().relative_to(_build.BUILD_DIR.parent.parent)}")
 
-    log("[3] kernels vs plain twins (times: median of 20 calls, of 10 for flash; ms)")
+    phase("[3] kernels vs plain twins (times: median of 20 calls, of 10 for flash; ms)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for names, check in ((("encoder_attention",), check_encoder_attention),
@@ -1373,7 +1697,7 @@ def main() -> int:
         for name, r in res.items():
             results.setdefault(name, {})[shape] = r
         torch.cuda.empty_cache()
-    for name in INT8_TOWER:  # the encode shape's numbers head each entry
+    for name in res:  # the encode shape's numbers head each int8 tower kernel's entry
         results[name] = {**results[name]["encode"], "serving_shape": results[name]["serving"]}
     results["wo_matmul"] = check_wo_matmul(gen)
     sampler = time_sampler(gen)
@@ -1381,60 +1705,77 @@ def main() -> int:
         f"argmax {sampler['argmax_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
-    log("[4] f32 engine: card vs CPU (greedy, speculative, forked, chunked, staggered)")
+    phase("[4] f32 engine: card vs CPU (greedy, speculative, forked, chunked, staggered)")
     check_f32_card_vs_cpu()
 
-    log("[5] full width: Llama-3.1-8B widths + CLIP ViT-L/14, bf16, 8 requests")
+    phase("[5] full width: Llama-3.1-8B widths + CLIP ViT-L/14, bf16, 8 requests")
     t0 = time.perf_counter()
     model = full_width_model()
     torch.cuda.synchronize()
     log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
-    full = run_full_width(model)
+    full = run_full_width(model, tower="bf16")
     gc.collect()
     torch.cuda.empty_cache()  # the engine and its KV pool are gone
 
-    log("[6] f32 trainer: card vs CPU, 3 optimizer steps, ALIGNMENT and FULL")
+    phase("[6] f32 trainer: card vs CPU, 3 optimizer steps, ALIGNMENT and FULL")
     check_train_f32_card_vs_cpu()
 
-    log("[7] full width ALIGNMENT: batch 4 x 4096, 16 images, remat, bf16")
+    phase("[7] full width ALIGNMENT: batch 4 x 4096, 16 images, remat, bf16")
     trained = run_train_full_width(model)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[8] full width speculative serving: k = 4, greedy, 8 slots, forked group, "
+    phase("[8] full width speculative serving: k = 4, greedy, 8 slots, forked group, "
         "chunked prompt")
     spec = run_spec_full_width(model)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[9] full width int8 encode: CLIP ViT-L/14 fused W8A8 + int8 projector, 8 x 256 "
+    phase("[9] full width int8 encode: CLIP ViT-L/14 fused W8A8 + int8 projector, 8 x 256 "
         "uint8 images, against bf16")
     encode = run_int8_encode(model)
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[10] full width serving with the int8 tower: phase 5 on the quantised model")
-    full_int8 = run_full_width(model, int8_tower=True)
+    phase("[10] full width serving with the int8 tower: phase 5 on the quantised model")
+    full_int8 = run_full_width(model, tower="L8")
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[11] full width int8 LLM serving: quantize_llm + w8a8_prefill, bf16 tower; phase 5's "
+    phase("[11] full width int8 LLM serving: quantize_llm + w8a8_prefill, bf16 tower; phase 5's "
         "run, then phase 8's speculative run (k = 4)")
     model.modalities["image"].embedder_q = None  # back to phase 5's bf16 tower
     llm_int8 = run_full_width(model, int8_llm=True)
     gc.collect()
     torch.cuda.empty_cache()
     spec_int8 = run_spec_full_width(model, int8_llm=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[12] full width, the other calibrations of the fused int8 tower: (L, 4) and (L, 7) "
+        "through load_jax_params, 8 x 256 images and phase 5's serving each; (L, 8) with "
+        "int8_o=False and fuse_l=False; K7b int8 + K10 + K7f composed")
+    others = run_other_calibrations(model)
 
     # each kernel's launches in the full-width run of its path
     launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
                 "ring_verify_attention": spec["launches"]["ring_verify_attention"],
                 **{n: encode["launches"][n] for n in INT8_TOWER},
-                "wo_matmul": llm_int8["launches"]["wo_matmul"]}
+                "wo_matmul": llm_int8["launches"]["wo_matmul"],
+                # phase 12: the (L, 4) and (L, 7) serving runs, the one-batch legs
+                "qkv_int8": others["L4"]["serving"]["launches"]["qkv_int8"],
+                "oproj_ln_quant_float": others["L4"]["serving"]["launches"]["oproj_ln_quant_float"],
+                "qkv_attn_int8_rowmax": others["L7"]["serving"]["launches"]["qkv_attn_int8_rowmax"],
+                "qkv_attn_int8_float_out":
+                    others["L8_float_out"]["launches"]["qkv_attn_int8_float_out"],
+                "qkv_attn_int8_static": others["L8_no_fuse_l"]["launches"]["qkv_attn_int8_static"],
+                "mlp_fused": others["unwired"]["launches"]["mlp_fused"],
+                "encoder_attention_int8": others["unwired"]["launches"]["encoder_attention_int8"]}
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
+    log(f"  all phases: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"full_width": {**{k: v for k, v in full.items() if k != "launches"},
                                      "sampler_ms": sampler}}))
     print(json.dumps({"train_full_width": trained}))
@@ -1442,6 +1783,7 @@ def main() -> int:
     print(json.dumps({"int8_encode": encode}))
     print(json.dumps({"full_width_int8_tower": {k: v for k, v in full_int8.items()}}))
     print(json.dumps({"full_width_int8_llm": llm_int8, "spec_full_width_int8_llm": spec_int8}))
+    print(json.dumps({"other_calibrations": others}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -75,10 +75,22 @@ SIGNATURES = {
                               _I, _I, _I, _F, _F, _F, _I, _P),
     # a, w, ws, bias, out, M, K, N, s, inv_s, act, stream
     "mmt_int8_fc1_act_quant": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    # o, w, ws, bias, x_res, ln_w, ln_b, x_out, xq, M, K, D, s, inv_s_o, inv_s,
+    # eps, dtype, stream
+    "mmt_float_res_ln_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # xq, x_res, w1, w1_s, b1, w2, w2_s, b2, ln_w, ln_b, x_out, xq_out, M, D, F,
+    # s2, inv_s3, s3, inv_s0n, eps, act, dtype, stream
+    "mmt_int8_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
     # a, w, ws, bias, q8, k8, v, M, K, D, s0, inv_q, inv_k, stream
     "mmt_int8_qkv_project": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
-    # q8, k8, v, o, B, S, H, dh, kv_len, a, shift, inv_s1, stream
-    "mmt_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # a, w, ws, bias, q, k, v, M, K, D, s0, inv_q, inv_k, inv_v, out_code, stream
+    "mmt_int8_qkv_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # q8, k8, v, o, B, S, H, dh, kv_len, a, shift, inv_s1, mode, out_code, stream
+    "mmt_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    # q8, k8, v8, o, B, S, H, dh, kv_len, qk_scale, pv_scale, out_code, stream
+    "mmt_encoder_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     # x, w_q, w_s, out, partial (float32 scratch or NULL), M, K, N, splits,
     # chunks_per_split, dtype, stream
     "mmt_wo_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

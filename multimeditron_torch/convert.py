@@ -130,7 +130,7 @@ def _entries(module: nn.Module) -> List[_Entry]:
 
 
 def _to_torch(arr) -> torch.Tensor:
-    arr = np.array(arr)  # a writable, contiguous copy
+    arr = np.array(arr, order="C")  # a writable, C-contiguous copy (of a swapped view too)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
@@ -157,25 +157,28 @@ def _image_modalities(module: nn.Module) -> Dict[Tuple[str, ...], ImageModality]
 def _int8_tower(mod: ImageModality, sub: Dict):
     """The W8A8 tower a modality subtree holds, or None for a float tower."""
     emb = sub.get("embedder", {})
-    device = mod.pixel_mean.device
+    device, dtype = mod.pixel_mean.device, mod.vit_cfg.dtype
 
-    def tensors(tree):
-        # on the modality's device; int8 matrices JAX (..., K, N) -> port (..., N, K)
+    def tensors(tree, carried):
+        # on the modality's device; int8 matrices JAX (..., K, N) -> port (..., N, K).
+        # Leaves both packings carry over from the float tower keep the
+        # tower's dtype (export_jax_params writes bf16 as float32).
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = tensors(v)
+                out[k] = tensors(v, _VIT_LAYER if k == "layers" else ())
                 continue
             v = np.asarray(v)
-            out[k] = _to_torch(np.swapaxes(v, -1, -2) if v.dtype == np.int8 else v).to(device)
+            t = _to_torch(np.swapaxes(v, -1, -2) if v.dtype == np.int8 else v).to(device)
+            out[k] = t.to(dtype) if k in carried and t.is_floating_point() else t
         return out
 
     scales = sub.get("act_scales")
     scales = None if scales is None else _to_torch(scales).to(device)
     if "wqkv_q" in emb:
-        return ViTInt8Fused(mod.vit_cfg, tensors(emb), scales)
+        return ViTInt8Fused(mod.vit_cfg, tensors(emb, _VIT_TOP), scales)
     if "q_proj_q" in emb.get("layers", {}):
-        return ViTInt8(mod.vit_cfg, tensors(emb), scales)
+        return ViTInt8(mod.vit_cfg, tensors(emb, _VIT_TOP), scales)
     return None
 
 

@@ -1,4 +1,4 @@
-// Shared tile core of the W8A8 ViT kernels (K7a/K7c/K7d/K7e/K7g): int8
+// Shared tile core of the W8A8 ViT kernels (K7a-K7g, K10): int8
 // products on the tensor cores with mma.sync m16n8k32 (s8 x s8 -> s32).
 //
 // Layout contract: every int8 operand is row-major with K contiguous. The
@@ -27,6 +27,7 @@
 // contraction the reference does not make, or the other way round.
 #pragma once
 
+#include <climits>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -117,28 +118,37 @@ __device__ __forceinline__ void stage_product(int (&acc)[MT][NT][4], const int8_
   }
 }
 
-// The K loop of a (BM x BN) block tile: A rows m0.., B rows n0.., through
-// kStages shared stages (cp.async: kStages - 1 stages are in flight while one
-// multiplies; one barrier a step). smem holds kStages * (BM + BN) * kLd
-// bytes. On return every thread has passed a barrier after the last read of
-// shared memory and no copy is pending, so the caller may reuse it.
-template <int BM, int BN, int MT, int NT, int kThreads, int kStages>
-__device__ __forceinline__ void gemm_mainloop(int (&acc)[MT][NT][4], int8_t* smem,
-                                              const int8_t* __restrict__ A,
-                                              const int8_t* __restrict__ B, int M, int N, int K,
-                                              int m0, int n0, int wm0, int wn0, int lane) {
+// An operand as int8 rows in device memory, `ld` bytes apart: a stage loader
+// for gemm_accumulate (rows past n_rows repeat the last, as load_stage).
+struct Int8Rows {
+  const int8_t* __restrict__ p;
+  int n_rows, ld;
+
+  template <int kRows, int kThreads>
+  __device__ __forceinline__ void load(int8_t* dst, int row0, int k0) const {
+    load_stage<kRows, kThreads>(dst, p, row0, n_rows, ld, k0);
+  }
+};
+
+// acc += the K loop of a (BM x BN) block tile: A rows m0.., B rows n0.., bytes
+// [0, K) of each, through kStages shared stages (kStages - 1 stages are in
+// flight while one multiplies; one barrier a step). Each operand comes from a
+// loader with load<kRows, kThreads>(stage, row0, k0) (Int8Rows, or one that
+// quantises or copies on the way in; a loader that stores with plain shared
+// stores is covered by the same barrier as cp.async). smem holds
+// kStages * (BM + BN) * kLd bytes. On return every thread has passed a barrier
+// after the last read of shared memory and no copy is pending, so the caller
+// may reuse it.
+template <int BM, int BN, int MT, int NT, int kThreads, int kStages, class ALoad, class BLoad>
+__device__ __forceinline__ void gemm_accumulate(int (&acc)[MT][NT][4], int8_t* smem,
+                                                const ALoad& a, const BLoad& b, int K, int m0,
+                                                int n0, int wm0, int wn0, int lane) {
   constexpr int kStage = (BM + BN) * kLd;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
   const int nk = K / kBK;
   auto load = [&](int kt) {
     int8_t* dst = smem + (kt % kStages) * kStage;
-    load_stage<BM, kThreads>(dst, A, m0, M, K, kt * kBK);
-    load_stage<BN, kThreads>(dst + BM * kLd, B, n0, N, K, kt * kBK);
+    a.template load<BM, kThreads>(dst, m0, kt * kBK);
+    b.template load<BN, kThreads>(dst + BM * kLd, n0, kt * kBK);
   };
 #pragma unroll
   for (int kt = 0; kt < kStages - 1; ++kt) {
@@ -157,6 +167,28 @@ __device__ __forceinline__ void gemm_mainloop(int (&acc)[MT][NT][4], int8_t* sme
   __syncthreads();
 }
 
+template <int MT, int NT>
+__device__ __forceinline__ void zero(int (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+}
+
+// acc = A (M, K) . B (N, K)^T over a block tile, both int8 in device memory.
+template <int BM, int BN, int MT, int NT, int kThreads, int kStages>
+__device__ __forceinline__ void gemm_mainloop(int (&acc)[MT][NT][4], int8_t* smem,
+                                              const int8_t* __restrict__ A,
+                                              const int8_t* __restrict__ B, int M, int N, int K,
+                                              int m0, int n0, int wm0, int wn0, int lane) {
+  zero(acc);
+  gemm_accumulate<BM, BN, MT, NT, kThreads, kStages>(acc, smem, Int8Rows{A, M, K},
+                                                     Int8Rows{B, N, K}, K, m0, n0, wm0, wn0,
+                                                     lane);
+}
+
 // clip(round_half_even(h * inv_s), -127, 127)
 __device__ __forceinline__ int8_t quant(float h, float inv_s) {
   const float r = rintf(__fmul_rn(h, inv_s));
@@ -167,6 +199,138 @@ __device__ __forceinline__ int8_t quant(float h, float inv_s) {
 // mode is 1 / bf16(x), computed in f32).
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The activations of the Pallas `_fc1_kernel` / `_mlp_fused_kernel`, in its
+// order of operations. act: 0 quick_gelu_approx, 1 quick_gelu,
+// 2 gelu_pytorch_tanh / gelu_new, 3 gelu.
+__device__ __forceinline__ float activate(float g, int act) {
+  switch (act) {
+    case 0: {  // quick_gelu_approx: g / bf16(1 + 2^(-1.702 log2(e) g))
+      const float e = exp2f(__fmul_rn(-2.4554396102104056f, g));
+      return __fmul_rn(g, __fdiv_rn(1.f, bf16_round(__fadd_rn(1.f, e))));
+    }
+    case 1: {  // quick_gelu: g * sigmoid(1.702 g)
+      const float z = __fmul_rn(1.702f, g);
+      return __fmul_rn(g, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z))));
+    }
+    case 2: {  // gelu_pytorch_tanh / gelu_new: g * (0.5 (1 + tanh(c (g + 0.044715 g^3))))
+      const float g3 = __fmul_rn(__fmul_rn(g, g), g);
+      const float inner = __fmul_rn(0.7978845608028654f, fmaf(0.044715f, g3, g));
+      return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
+    }
+    default:  // gelu: 0.5 g erfc(-g / sqrt(2))
+      return __fmul_rn(__fmul_rn(0.5f, g), erfcf(__fmul_rn(-g, 0.7071067811865476f)));
+  }
+}
+
+// ----------------------------------------------------------------------
+// int8 attention over 64-byte heads (K7g's attention, K10): one block per
+// (head, image) stages the head's keys, each warp walks 16-query tiles.
+// ----------------------------------------------------------------------
+
+// Key rows [0, rows) of one head (64 int8 values at k8 + r * ld) into a
+// stage kLd apart; rows at or past kv_len are zero.
+template <int kThreads>
+__device__ __forceinline__ void stage_keys(int8_t* ks, const int8_t* __restrict__ k8, int rows,
+                                           int kv_len, int ld) {
+  for (int e = threadIdx.x; e < rows * 4; e += kThreads) {
+    const int r = e / 4, c = (e % 4) * 16;
+    const uint4 val = r < kv_len ? *reinterpret_cast<const uint4*>(k8 + size_t(r) * ld + c)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(ks + r * kLd + c) = val;
+  }
+}
+
+// A fragments of query rows ra and rb (64 int8 values at q8 + r * ld) for
+// bytes 0-31 (qa[0]) and 32-63 (qa[1]), straight from device memory; rows
+// past S repeat row S - 1.
+__device__ __forceinline__ void load_queries(uint32_t (&qa)[2][4], const int8_t* __restrict__ q8,
+                                             int ra, int rb, int S, int ld, int t) {
+  const int8_t* pa = q8 + size_t(min(ra, S - 1)) * ld + 4 * t;
+  const int8_t* pb = q8 + size_t(min(rb, S - 1)) * ld + 4 * t;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(pa + 32 * kk);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(pb + 32 * kk);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(pa + 32 * kk + 16);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(pb + 32 * kk + 16);
+  }
+}
+
+// int32 scores of a 16-row query tile against key rows k0 .. k0 + kKeys - 1
+// of a stage (64 bytes of K a row, kLd apart): qa holds the tile's A
+// fragments for bytes 0-31 and 32-63; sc[j] is the 8-key tile k0 + 8 j.
+template <int kKeys>
+__device__ __forceinline__ void key_scores(int (&sc)[kKeys / 8][4], const uint32_t (&qa)[2][4],
+                                           const int8_t* ks, int k0, int lane) {
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; j += 2)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t kb[4];
+      load_b2(kb, ks, k0 + 8 * j, 32 * kk, lane);
+      mma_s8(sc[j], qa[kk], kb[0], kb[1]);
+      mma_s8(sc[j + 1], qa[kk], kb[2], kb[3]);
+    }
+}
+
+// The row maximum of s = round(acc * a) for the tile's rows g (m0) and
+// g + 8 (m1) over keys below kv_len, with no online softmax: rounding is
+// monotone, so max(round(acc * a)) = round(max(acc) * a) for a >= 0 (and
+// the minimum acc for a < 0). One pass of int8 scores over the staged keys,
+// the extremes reduced over the four lanes of a row.
+template <int kKeys>
+__device__ __forceinline__ void row_max(float& m0, float& m1, const uint32_t (&qa)[2][4],
+                                        const int8_t* ks, int rows, int kv_len, float a,
+                                        int lane) {
+  const int t = lane & 3;
+  int hi0 = INT_MIN, hi1 = INT_MIN, lo0 = INT_MAX, lo1 = INT_MAX;
+  for (int k0 = 0; k0 < rows; k0 += kKeys) {
+    int sc[kKeys / 8][4];
+    key_scores<kKeys>(sc, qa, ks, k0, lane);
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + 8 * j + 2 * t + (e & 1) >= kv_len) continue;
+        if (e < 2) {
+          hi0 = max(hi0, sc[j][e]);
+          lo0 = min(lo0, sc[j][e]);
+        } else {
+          hi1 = max(hi1, sc[j][e]);
+          lo1 = min(lo1, sc[j][e]);
+        }
+      }
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    hi0 = max(hi0, __shfl_xor_sync(0xffffffffu, hi0, x));
+    hi1 = max(hi1, __shfl_xor_sync(0xffffffffu, hi1, x));
+    lo0 = min(lo0, __shfl_xor_sync(0xffffffffu, lo0, x));
+    lo1 = min(lo1, __shfl_xor_sync(0xffffffffu, lo1, x));
+  }
+  m0 = __fmul_rn(static_cast<float>(a >= 0.f ? hi0 : lo0), a);
+  m1 = __fmul_rn(static_cast<float>(a >= 0.f ? hi1 : lo1), a);
+}
+
+// Two adjacent outputs, stored as float32 or bf16, or quantised to int8 by
+// inv_s.
+__device__ __forceinline__ void store2(float* p, float x0, float x1, float = 1.f) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1, float = 1.f) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store2(int8_t* p, float x0, float x1, float inv_s) {
+  char2 q;
+  q.x = quant(x0, inv_s);
+  q.y = quant(x1, inv_s);
+  *reinterpret_cast<char2*>(p) = q;
 }
 
 }  // namespace i8

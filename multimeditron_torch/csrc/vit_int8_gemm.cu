@@ -1,9 +1,13 @@
-// K7d and the projection half of K7g: tiled int8 GEMMs with a per-column
-// epilogue, for the fused W8A8 ViT tower.
+// K7d, K7b and the projection half of K7g: tiled int8 GEMMs with a
+// per-column epilogue, for the fused W8A8 ViT tower.
 //
 // Replaces, in multimeditron_tpu/ops/vit_int8_fused.py:
 // - `_fc1_kernel` (:145, reached through `fc1_gelu_quant` :588): hq =
 //   quant(act(acc * (ws * s2) + b), 1 / s3), written int8 (M, N);
+// - `_qkv_kernel` (K7b, :111, reached through `qkv_int8` :520): q, k and v =
+//   acc * (ws * s0) + b as three separate (M, D) tensors in the residual
+//   stream's dtype (bf16 or float32), or, with static q/k/v scales, each
+//   quantised to int8 at its own scale (the (L, 4) calibration's layer);
 // - the projection of `_qkv_attn_kernel` (:217, reached through
 //   `qkv_attn_int8` :767): q8 = quant(acc * (ws * s0) + b, 1 / sq), k8 the
 //   same with 1 / sk, and v in bf16; vit_int8_attention.cu then attends.
@@ -11,7 +15,7 @@
 // What bounds it on the H100: operations. fc1 at the ViT-L/14 encode shape
 // (M = 256 x 257 = 65,792, K = 1024, N = 4096) is 5.5e11 int8 operations, 0.28
 // ms at 1,979 TOPS, against 0.37 GB of traffic (0.11 ms); the QKV projection
-// (N = 3072) is 0.21 ms of operations.
+// (N = 3072) is 0.21 ms of operations, and so is K7b's.
 //
 // The design: one block of 8 warps per 128 x 128 output tile, each warp a
 // 64 x 32 sub-tile of 4 x 4 mma.sync m16n8k32 accumulators fed by
@@ -40,27 +44,6 @@ constexpr int kBN = 128;
 constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
 constexpr int kStages = 4;
 constexpr int kSmem = kStages * (kBM + kBN) * kLd;  // 80 KB: two blocks an SM
-
-// The activations of `_fc1_kernel`, in the Pallas kernel's order of operations.
-__device__ __forceinline__ float activate(float g, int act) {
-  switch (act) {
-    case 0: {  // quick_gelu_approx: g / bf16(1 + 2^(-1.702 log2(e) g))
-      const float e = exp2f(__fmul_rn(-2.4554396102104056f, g));
-      return __fmul_rn(g, __fdiv_rn(1.f, bf16_round(__fadd_rn(1.f, e))));
-    }
-    case 1: {  // quick_gelu: g * sigmoid(1.702 g)
-      const float z = __fmul_rn(1.702f, g);
-      return __fmul_rn(g, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z))));
-    }
-    case 2: {  // gelu_pytorch_tanh / gelu_new: g * (0.5 (1 + tanh(c (g + 0.044715 g^3))))
-      const float g3 = __fmul_rn(__fmul_rn(g, g), g);
-      const float inner = __fmul_rn(0.7978845608028654f, fmaf(0.044715f, g3, g));
-      return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
-    }
-    default:  // gelu: 0.5 g erfc(-g / sqrt(2))
-      return __fmul_rn(__fmul_rn(0.5f, g), erfcf(__fmul_rn(-g, 0.7071067811865476f)));
-  }
-}
 
 // An epilogue gives each output column pair its dequantisation scale
 // (ws * s) and bias once per thread (scale, shift), then finishes and stores
@@ -112,6 +95,28 @@ struct QkvEpilogue {
       q.y = quant(x1, inv);
       *reinterpret_cast<char2*>((j == 0 ? q8 : k8) + at) = q;
     }
+  }
+};
+
+// K7b: q, k, v (columns [0, D), [D, 2 D), [2 D, 3 D) of the product) into
+// three (M, D) tensors of type T; inv[j] quantises output j when T is int8.
+template <typename T>
+struct QkvSplitEpilogue {
+  const float* ws;    // (3, D)
+  const float* bias;  // (3, D)
+  T* out[3];
+  int D;
+  float s0;
+  float inv[3];
+
+  __device__ __forceinline__ float2 scale(int col) const {
+    return make_float2(__fmul_rn(ws[col], s0), __fmul_rn(ws[col + 1], s0));
+  }
+  __device__ __forceinline__ float2 shift(int col) const { return make_float2(bias[col], bias[col + 1]); }
+  __device__ __forceinline__ void put(int row, int col, int a0, int a1, float2 sc, float2 b) const {
+    const int j = col / D;
+    store2(out[j] + size_t(row) * D + (col - j * D), fmaf(static_cast<float>(a0), sc.x, b.x),
+           fmaf(static_cast<float>(a1), sc.y, b.y), inv[j]);
   }
 };
 
@@ -175,4 +180,38 @@ extern "C" int mmt_int8_qkv_project(const void* a, const void* w, const void* ws
                         static_cast<int8_t*>(q8), static_cast<int8_t*>(k8),
                         static_cast<__nv_bfloat16*>(v), D, s0, inv_q, inv_k};
   return launch(a, w, M, 3 * D, K, epi, static_cast<cudaStream_t>(stream));
+}
+
+// K7b. a (M, K) int8, w (3 D, K) int8 (q, k, v rows), ws / bias (3 D,) float
+// -> q, k, v (M, D) each: out_code 0 float32, 1 bf16, 2 int8 (quantised by
+// inv_q, inv_k, inv_v).
+extern "C" int mmt_int8_qkv_split(const void* a, const void* w, const void* ws, const void* bias,
+                                  void* q, void* k, void* v, int M, int K, int D, float s0,
+                                  float inv_q, float inv_k, float inv_v, int out_code,
+                                  void* stream) {
+  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* wsf = static_cast<const float*>(ws);
+  const float* bf = static_cast<const float*>(bias);
+  switch (out_code) {
+    case 0: {
+      const QkvSplitEpilogue<float> epi{wsf, bf, {static_cast<float*>(q), static_cast<float*>(k),
+                                                  static_cast<float*>(v)}, D, s0, {1.f, 1.f, 1.f}};
+      return launch(a, w, M, 3 * D, K, epi, st);
+    }
+    case 1: {
+      const QkvSplitEpilogue<__nv_bfloat16> epi{
+          wsf, bf, {static_cast<__nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(k),
+                    static_cast<__nv_bfloat16*>(v)}, D, s0, {1.f, 1.f, 1.f}};
+      return launch(a, w, M, 3 * D, K, epi, st);
+    }
+    case 2: {
+      const QkvSplitEpilogue<int8_t> epi{wsf, bf, {static_cast<int8_t*>(q), static_cast<int8_t*>(k),
+                                                   static_cast<int8_t*>(v)}, D, s0,
+                                         {inv_q, inv_k, inv_v}};
+      return launch(a, w, M, 3 * D, K, epi, st);
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

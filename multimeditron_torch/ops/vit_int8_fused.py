@@ -1,17 +1,30 @@
-"""Fused W8A8 ViT tower: kernels K7a, K7g, K7c, K7d, K7e and their host side.
+"""Fused W8A8 ViT tower: kernels K7a-K7g and their host side.
 
-Counterpart of ``multimeditron_tpu/ops/vit_int8_fused.py`` in the
-configuration ``vit_forward_int8_fused`` runs by default: (L, 8) calibrations
-(static softmax stabiliser), the denominator from the bf16-rounded p
-(``fuse_l``), int8 attention output (``int8_o``) and, for ``quick_gelu``,
-the exp2 + approximate-reciprocal sigmoid. One layer is
+Counterpart of ``multimeditron_tpu/ops/vit_int8_fused.py``. The calibration
+(``act_scales``) picks the layer body, as in the JAX package:
 
-    K7g  qkv_attn_int8     xq -> QKV projection + int8-QK / bf16-PV attention -> o8
-    K7c  oproj_ln_quant    o8, x -> x' = x + dequant(o8 W_o) + b;  quant(ln2(x'))
+- (L, 8): the static softmax stabiliser (column 7). By default the
+  denominator comes from the bf16-rounded p (``fuse_l``), the attention
+  output is int8 (``int8_o``) and, for ``quick_gelu``, the sigmoid is the
+  exp2 + approximate-reciprocal one;
+- (L, 7): the same merged body with the row max taken in the kernel and a
+  float attention output;
+- (L, 4), the unfused calibrator's scales: a separate QKV projection (K7b)
+  and the float encoder attention K3, with the exact activation.
+
+One layer is
+
+    K7g  qkv_attn_int8     xq -> QKV projection + int8-QK / bf16-PV attention -> o
+      or K7b qkv_int8 + K3 encoder_attention                                   -> o
+    K7c  oproj_ln_quant    o, x -> x' = x + dequant(quant(o) W_o) + b;  quant(ln2(x'))
     K7d  fc1_gelu_quant    xq2 -> quant(act(dequant(xq2 W_1) + b))
     K7e  fc2_res_ln_quant  hq, x' -> x'' = x' + dequant(hq W_2) + b;  quant(ln1_next(x''))
 
-with K7a ``ln_quant`` (layer 0's ln1, quantised) once per forward.
+with K7a ``ln_quant`` (layer 0's ln1, quantised) once per forward. K7g's
+attention has three compile-time forms (the Pallas kernel's consume paths):
+``fuse_l`` with int8 or float output, the static stabiliser without
+``fuse_l``, and the row max. K7f ``mlp_fused`` (K7d and K7e in one kernel)
+has no caller, as in the JAX package.
 
 Each wrapper runs its CUDA kernel (``csrc/vit_int8_*.cu``) on a CUDA tensor
 and its plain PyTorch twin (``*_plain``) on a CPU tensor; nothing falls back.
@@ -31,11 +44,9 @@ kernels compute exactly that. The port does not pad the 257-token sequence
 to 264 (a TPU sublane layout): rows are M = B * S and attention masks keys
 at ``kv_len = S``.
 
-Not ported (no entry point reaches them; ROADMAP queue 2): (L, 4) and
-(L, 7) calibrations (K7b and the row-max attention), ``mlp_fused`` (K7f) and
-the measured-wash flags ``bf16_qk``, ``store_p``, ``bf16_scores``,
-``ph_exp2``, ``allow_packed`` and ``fast_ln``. They raise
-``NotImplementedError``.
+Not ported: the flags that measured as washes on the TPU, ``bf16_qk``,
+``store_p``, ``bf16_scores``, ``ph_exp2``, ``allow_packed`` and ``fast_ln``
+(ROADMAP queue 2). They raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from torch import nn
 
 from multimeditron_torch import _build
 from multimeditron_torch.models.vit import ViTConfig
+from multimeditron_torch.ops.encoder_attention import encoder_attention
 from multimeditron_torch.models.vit_quant import (
     Params,
     TreeBuffers,
@@ -60,15 +72,22 @@ from multimeditron_torch.models.vit_quant import (
 )
 
 # Launches of the CUDA kernels (the plain twins do not count).
-launches = {"ln_quant": 0, "qkv_attn_int8": 0, "oproj_ln_quant": 0, "fc1_gelu_quant": 0,
-            "fc2_res_ln_quant": 0}
+# K7g's forms count apart: the (L, 8) default (fuse_l, int8 output), fuse_l
+# with a float output, the static stabiliser without fuse_l, the row max.
+ATTENTION_FORMS = {("fused", True): "qkv_attn_int8",
+                   ("fused", False): "qkv_attn_int8_float_out",
+                   ("static", False): "qkv_attn_int8_static",
+                   ("rowmax", False): "qkv_attn_int8_rowmax"}
+launches = {"ln_quant": 0, "qkv_int8": 0, **{n: 0 for n in ATTENTION_FORMS.values()},
+            "oproj_ln_quant": 0, "oproj_ln_quant_float": 0, "fc1_gelu_quant": 0,
+            "fc2_res_ln_quant": 0, "mlp_fused": 0}
 
 ACTIVATIONS = {"quick_gelu_approx": 0, "quick_gelu": 1, "gelu_pytorch_tanh": 2, "gelu_new": 2,
                "gelu": 3}
 WIDTHS = (128, 256, 768, 1024)  # tower widths the row kernels are built for
 HEAD_DIM = 64                   # the attention kernel's head dim
 LOG2E = 1.4426950408889634
-_UNPORTED = "is not ported (ROADMAP queue 2: K7b, K7f and the measured-wash flags)"
+_UNPORTED = "is not ported (ROADMAP queue 2: the flags that measured as washes on the TPU)"
 
 
 def f32(x) -> float:
@@ -138,11 +157,27 @@ def fc1_gelu_quant_plain(xq, wq, ws, bias, s: float, inv_s: float, act: str) -> 
     return _quant(activate(_dequant(int8_matmul(xq, wq), ws, s, bias), act), inv_s)
 
 
+def qkv_int8_plain(xq, wq, ws, bias, s0: float, out_dtype: torch.dtype,
+                   inv3: Optional[Sequence[float]] = None):
+    """K7b: xq (M, K) int8 against wq (3, D, K) -> q, k, v (M, D), each
+    acc * (ws * s0) + b in ``out_dtype``, or quantised by ``inv3`` to int8."""
+    D = wq.shape[1]
+    val = _dequant(int8_matmul(xq, wq.reshape(3 * D, -1)), ws, s0, bias)
+    parts = [val[:, j * D:(j + 1) * D] for j in range(3)]
+    if inv3 is not None:
+        return tuple(_quant(x, inv) for x, inv in zip(parts, inv3))
+    return tuple(x.to(out_dtype).contiguous() for x in parts)
+
+
 def qkv_attn_int8_plain(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: int,
-                        kv_len: int) -> torch.Tensor:
-    """K7g: QKV projection (q, k int8; v bf16) + attention with the static
-    stabiliser; (B, S, D) int8. ``scales6``: s0, 1/sq, 1/sk, smax log2(e),
-    sq sk sm_scale, 1/s1."""
+                        kv_len: int, *, mode: str = "fused",
+                        out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """K7g: QKV projection (q, k int8; v bf16) + attention -> (B, S, D) in
+    ``out_dtype`` (int8: quantised by 1/s1). ``scales6``: s0, 1/sq, 1/sk,
+    smax log2(e), sq sk sm_scale, 1/s1. ``mode``: "fused" (static
+    stabiliser folded into one fma, denominator from the bf16-rounded p),
+    "static" (stabiliser subtracted after the multiply, f32 denominator) or
+    "rowmax" (the row's maximum as stabiliser, f32 denominator)."""
     B, S, D = xq3.shape
     H, dh = num_heads, D // num_heads
     s0, inv_q, inv_k, shift, qk_scale, inv_s1 = scales6
@@ -155,12 +190,29 @@ def qkv_attn_int8_plain(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: 
     q8, k8 = _quant(val[:, :D], inv_q), _quant(val[:, D:2 * D], inv_k)
     v = val[:, 2 * D:].to(torch.bfloat16)
     # int8 q.k over dh = 64 stays below 2^24: exact in float32
-    scores = fma(heads(q8) @ heads(k8).transpose(-1, -2), a, -shift)
-    p = torch.exp2(scores).to(torch.bfloat16).float()
-    p = torch.where(torch.arange(S, device=p.device) < kv_len, p, 0.0)
-    inv_l = 1.0 / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30).to(torch.bfloat16).float()
-    o = (p @ heads(v)) * inv_l
-    return _quant(o, inv_s1).transpose(1, 2).reshape(B, S, D)
+    acc = heads(q8) @ heads(k8).transpose(-1, -2)
+    valid = torch.arange(S, device=acc.device) < kv_len
+    if mode == "fused":
+        p = torch.exp2(fma(acc, a, -shift)).to(torch.bfloat16).float()
+        p = torch.where(valid, p, 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+    else:
+        s = acc * a
+        m = shift if mode == "static" else torch.where(valid, s, -1e30).amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp2(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p.to(torch.bfloat16).float()
+    inv_l = 1.0 / torch.clamp(l, min=1e-30).to(torch.bfloat16).float()
+    o = ((p @ heads(v)) * inv_l).transpose(1, 2).reshape(B, S, D)
+    return _quant(o, inv_s1) if out_dtype == torch.int8 else o.to(out_dtype)
+
+
+def mlp_fused_plain(xq, x_res, w1, w1_s, b1, w2, w2_s, b2, ln_w, ln_b, s2: float, inv_s3: float,
+                    s3: float, inv_s0n: float, eps: float, act: str):
+    """K7f: the split pair K7d then K7e (fc2's int32 sum over F in chunks is
+    exact, so the chunked kernel computes the same values)."""
+    hq = fc1_gelu_quant_plain(xq, w1, w1_s, b1, s2, inv_s3, act)
+    return res_ln_quant_plain(hq, x_res, w2, w2_s, b2, ln_w, ln_b, s3, inv_s0n, eps)
 
 
 # ----------------------------------------------------------------------
@@ -219,39 +271,50 @@ def ln_quant(x: torch.Tensor, ln_w, ln_b, scale: float, eps: float) -> torch.Ten
     return out
 
 
-def _res_ln_quant(name: str, a8, x_res, wq, ws, bias, ln_w, ln_b, s: float, s_next: float,
+def _res_ln_quant(name: str, a, x_res, wq, ws, bias, ln_w, ln_b, s: float, s_next: float,
                   eps: float):
-    M, K = a8.shape
+    """K7c / K7e. ``a`` is int8, or (K7c's ``oproj_ln_quant_float``) a float
+    o in x_res's dtype that the kernel quantises by 1/s as it stages it."""
+    M, K = a.shape
     D = wq.shape[0]
     inv_s = f32_inv(s_next)
-    _check_int8(name, a8=a8, wq=wq)
+    quantise_a = name == "oproj_ln_quant_float"
+    _check_int8(name, wq=wq, **({} if quantise_a else {"a8": a}))
     if wq.shape != (D, K) or x_res.shape != (M, D):
-        raise ValueError(f"{name}: a8 {tuple(a8.shape)}, wq {tuple(wq.shape)} and x_res "
+        raise ValueError(f"{name}: a {tuple(a.shape)}, wq {tuple(wq.shape)} and x_res "
                          f"{tuple(x_res.shape)} do not fit (M, K) x (D, K) -> (M, D)")
-    if not _on_card(name, a8, x_res, wq, ws, bias, ln_w, ln_b):
+    if not _on_card(name, a, x_res, wq, ws, bias, ln_w, ln_b):
+        a8 = _quant(a.float(), f32_inv(s)) if quantise_a else a
         return res_ln_quant_plain(a8, x_res, wq, ws, bias, ln_w, ln_b, s, inv_s, eps)
     _check_width(name, D)
     if K % 64:
         raise ValueError(f"{name}: K={K} is not a multiple of 64")
     if x_res.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: the residual must be float32 or bfloat16, got {x_res.dtype}")
+    if quantise_a and a.dtype != x_res.dtype:
+        raise ValueError(f"{name}: o must have the residual's dtype {x_res.dtype}, got {a.dtype}")
     ws, bias = _vec(ws, D, "ws"), _vec(bias, D, "bias")
     ln_w, ln_b = _vec(ln_w, D, "ln_w"), _vec(ln_b, D, "ln_b")
     x_out = torch.empty_like(x_res)
-    xq = torch.empty(M, D, dtype=torch.int8, device=a8.device)
-    code = _build.library().mmt_int8_res_ln_quant(
-        a8.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), x_res.data_ptr(),
-        ln_w.data_ptr(), ln_b.data_ptr(), x_out.data_ptr(), xq.data_ptr(), M, K, D, f32(s),
-        inv_s, eps, _build.DTYPE_CODES[x_res.dtype], _build.stream_handle(a8.device))
+    xq = torch.empty(M, D, dtype=torch.int8, device=a.device)
+    lib = _build.library()
+    pointers = (a.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), x_res.data_ptr(),
+                ln_w.data_ptr(), ln_b.data_ptr(), x_out.data_ptr(), xq.data_ptr(), M, K, D, f32(s))
+    tail = (inv_s, eps, _build.DTYPE_CODES[x_res.dtype], _build.stream_handle(a.device))
+    code = (lib.mmt_float_res_ln_quant(*pointers, f32_inv(s), *tail) if quantise_a
+            else lib.mmt_int8_res_ln_quant(*pointers, *tail))
     _build.check(name, code)
     launches[name] += 1
     return x_out, xq
 
 
-def oproj_ln_quant(o8, x_res, wq, ws, bias, ln_w, ln_b, s1: float, s2: float, eps: float):
-    """K7c: x' = x_res + dequant(o8 @ wq) + b; returns (x' in x_res's dtype,
-    quant(ln2(x'), s2) int8). ``o8`` is K7g's int8 output."""
-    return _res_ln_quant("oproj_ln_quant", o8, x_res, wq, ws, bias, ln_w, ln_b, s1, s2, eps)
+def oproj_ln_quant(o, x_res, wq, ws, bias, ln_w, ln_b, s1: float, s2: float, eps: float):
+    """K7c: x' = x_res + dequant(quant(o) @ wq) + b; returns (x' in x_res's
+    dtype, quant(ln2(x'), s2) int8). ``o`` is K7g's int8 output, taken as it
+    is, or a float o (K3's or K7g's float output) that the kernel quantises
+    by 1/s1 as it reads it."""
+    name = "oproj_ln_quant" if o.dtype == torch.int8 else "oproj_ln_quant_float"
+    return _res_ln_quant(name, o, x_res, wq, ws, bias, ln_w, ln_b, s1, s2, eps)
 
 
 def fc2_res_ln_quant(hq, x_res, wq, ws, bias, ln_w, ln_b, s3: float, s0_next: float,
@@ -286,16 +349,51 @@ def fc1_gelu_quant(xq, wq, ws, bias, s2: float, s3: float, act: str) -> torch.Te
     return out
 
 
+def qkv_int8(xq, wq, ws, bias, s0: float, *, out_dtype: torch.dtype = torch.bfloat16,
+             qkv_scales: Optional[Sequence[float]] = None):
+    """K7b: xq (M, K) int8 @ wq (3, D, K) -> three (M, D) tensors q, k, v,
+    each acc * (ws * s0) + b in ``out_dtype``; with ``qkv_scales`` (static
+    q, k, v activation scales) each is quantised to int8 at its scale."""
+    M, K = xq.shape
+    D = wq.shape[1]
+    _check_int8("qkv_int8", xq=xq, wq=wq)
+    if wq.shape != (3, D, K):
+        raise ValueError(f"qkv_int8: wq {tuple(wq.shape)} is not (3, D, {K})")
+    inv3 = None if qkv_scales is None else [f32_inv(x) for x in qkv_scales]
+    out_dtype = torch.int8 if inv3 is not None else out_dtype
+    if not _on_card("qkv_int8", xq, wq, ws, bias):
+        return qkv_int8_plain(xq, wq, ws, bias, s0, out_dtype, inv3)
+    codes = {**_build.DTYPE_CODES, torch.int8: 2}
+    if out_dtype not in codes:
+        raise ValueError(f"qkv_int8: out_dtype must be float32, bfloat16 or int8, got {out_dtype}")
+    if K % 64 or D % 128:
+        raise ValueError(f"qkv_int8: K={K} must be a multiple of 64 and D={D} of 128")
+    ws, bias = _vec(ws, 3 * D, "ws"), _vec(bias, 3 * D, "bias")
+    q, k, v = (torch.empty(M, D, dtype=out_dtype, device=xq.device) for _ in range(3))
+    inv_q, inv_k, inv_v = inv3 if inv3 is not None else (1.0, 1.0, 1.0)
+    code = _build.library().mmt_int8_qkv_split(
+        xq.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), M, K, D, f32(s0), inv_q, inv_k, inv_v, codes[out_dtype],
+        _build.stream_handle(xq.device))
+    _build.check("qkv_int8", code)
+    launches["qkv_int8"] += 1
+    return q, k, v
+
+
 def qkv_attn_int8(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: int, kv_len: int,
-                  *, static_smax: bool = True, fuse_l: bool = True, bf16_qk: bool = False,
+                  *, static_smax: bool = True, fuse_l: bool = True,
+                  out_dtype: torch.dtype = torch.int8, bf16_qk: bool = False,
                   store_p: bool = False, bf16_scores: bool = False, ph_exp2: bool = False,
                   allow_packed: bool = False) -> torch.Tensor:
     """K7g: xq3 (B, S, D) int8 -> QKV projection and attention -> (B, S, D)
-    int8, quantised by 1/s1. ``wq`` (3, D, D) int8 (q, k, v output rows),
-    ``ws`` and ``bias`` 3 * D floats; ``scales6`` as in the plain twin."""
-    if (not static_smax or not fuse_l or bf16_qk or store_p or bf16_scores or ph_exp2
-            or allow_packed):
-        raise NotImplementedError(f"qkv_attn_int8 beyond static_smax + fuse_l {_UNPORTED}")
+    in ``out_dtype`` (int8: quantised by 1/s1). ``wq`` (3, D, D) int8 (q, k,
+    v output rows), ``ws`` and ``bias`` 3 * D floats; ``scales6`` as in the
+    plain twin. The consume path follows the JAX gating: ``fuse_l`` holds
+    only with ``static_smax`` and a head dim below 128, and an int8 output
+    needs it; without ``static_smax`` the row max is the stabiliser."""
+    if bf16_qk or store_p or bf16_scores or ph_exp2 or allow_packed:
+        raise NotImplementedError(f"qkv_attn_int8's bf16_qk, store_p, bf16_scores, ph_exp2 and "
+                                  f"allow_packed {_UNPORTED}")
     B, S, D = xq3.shape
     _check_int8("qkv_attn_int8", xq3=xq3, wq=wq)
     if wq.numel() != 3 * D * D or D % num_heads:
@@ -303,32 +401,84 @@ def qkv_attn_int8(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: int, k
                          f"{num_heads} heads do not divide {D}")
     if not 1 <= kv_len <= S:
         raise ValueError(f"kv_len={kv_len} must lie in [1, {S}]")
+    fuse_l = fuse_l and static_smax and D // num_heads < 128
+    if out_dtype == torch.int8 and not fuse_l:
+        raise ValueError(
+            "qkv_attn_int8: int8 out_dtype requires the fuse_l consume path after effective "
+            f"flag gating; got effective fuse_l={fuse_l} (static_smax={static_smax})")
+    mode = "fused" if fuse_l else ("static" if static_smax else "rowmax")
+    name = ATTENTION_FORMS[mode, out_dtype == torch.int8]
     scales6 = [f32(x) for x in (scales6.tolist() if torch.is_tensor(scales6) else scales6)]
-    if not _on_card("qkv_attn_int8", xq3, wq, ws, bias):
-        return qkv_attn_int8_plain(xq3, wq, ws, bias, scales6, num_heads, kv_len)
+    if not _on_card(name, xq3, wq, ws, bias):
+        return qkv_attn_int8_plain(xq3, wq, ws, bias, scales6, num_heads, kv_len, mode=mode,
+                                   out_dtype=out_dtype)
     if D // num_heads != HEAD_DIM:
         raise ValueError(f"qkv_attn_int8: the kernel takes head dim {HEAD_DIM}, "
                          f"got {D // num_heads}")
     if D % 64 or (3 * D) % 128:
         raise ValueError(f"qkv_attn_int8: width {D} must be a multiple of 128")
+    if out_dtype != torch.int8 and out_dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"qkv_attn_int8: out_dtype must be int8, float32 or bfloat16, "
+                         f"got {out_dtype}")
     s0, inv_q, inv_k, shift, qk_scale, inv_s1 = scales6
     ws, bias = _vec(ws, 3 * D, "ws"), _vec(bias, 3 * D, "bias")
     M = B * S
     q8 = torch.empty(M, D, dtype=torch.int8, device=xq3.device)
     k8 = torch.empty_like(q8)
     v = torch.empty(M, D, dtype=torch.bfloat16, device=xq3.device)
-    o = torch.empty(B, S, D, dtype=torch.int8, device=xq3.device)
+    o = torch.empty(B, S, D, dtype=out_dtype, device=xq3.device)
     lib, stream = _build.library(), _build.stream_handle(xq3.device)
     code = lib.mmt_int8_qkv_project(
         xq3.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), q8.data_ptr(),
         k8.data_ptr(), v.data_ptr(), M, D, D, s0, inv_q, inv_k, stream)
-    _build.check("qkv_attn_int8 (projection)", code)
+    _build.check(f"{name} (projection)", code)
     code = lib.mmt_int8_attention(
         q8.data_ptr(), k8.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, num_heads, HEAD_DIM,
-        kv_len, f32(np.float32(qk_scale) * np.float32(LOG2E)), shift, inv_s1, stream)
-    _build.check("qkv_attn_int8 (attention)", code)
-    launches["qkv_attn_int8"] += 1
+        kv_len, f32(np.float32(qk_scale) * np.float32(LOG2E)), shift, inv_s1,
+        ("fused", "static", "rowmax").index(mode),
+        2 if out_dtype == torch.int8 else _build.DTYPE_CODES[out_dtype], stream)
+    _build.check(f"{name} (attention)", code)
+    launches[name] += 1
     return o
+
+
+def mlp_fused(xq, x_res, w1, w1_s, b1, w2, w2_s, b2, ln_w, ln_b, s2: float, s3: float,
+              s0_next: float, eps: float, act: str):
+    """K7f: fc1 -> act -> quant -> fc2 -> residual -> LN -> quant in one
+    kernel (the int8 hidden stays in shared memory); a drop-in for
+    fc1_gelu_quant + fc2_res_ln_quant. xq (M, D) int8, w1 (F, D), w2 (D, F)
+    int8. Returns (x'' in x_res's dtype, xq_next int8). Nothing calls it, as
+    in the JAX package; the approximate sigmoid is refused, as there."""
+    M, D = xq.shape
+    F = w1.shape[0]
+    if act not in ACTIVATIONS or act == "quick_gelu_approx":
+        raise ValueError(f"Unknown activation {act!r}")
+    _check_int8("mlp_fused", xq=xq, w1=w1, w2=w2)
+    if w1.shape != (F, D) or w2.shape != (D, F) or x_res.shape != (M, D):
+        raise ValueError(f"mlp_fused: xq {tuple(xq.shape)}, w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)} and x_res {tuple(x_res.shape)} do not fit")
+    inv_s3, inv_s0n = f32_inv(s3), f32_inv(s0_next)
+    if not _on_card("mlp_fused", xq, x_res, w1, w1_s, b1, w2, w2_s, b2, ln_w, ln_b):
+        return mlp_fused_plain(xq, x_res, w1, w1_s, b1, w2, w2_s, b2, ln_w, ln_b, s2, inv_s3,
+                               s3, inv_s0n, eps, act)
+    _check_width("mlp_fused", D)
+    if F % 128:
+        raise ValueError(f"mlp_fused: F={F} is not a multiple of 128")
+    if x_res.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"mlp_fused: the residual must be float32 or bfloat16, got {x_res.dtype}")
+    w1_s, b1 = _vec(w1_s, F, "w1_s"), _vec(b1, F, "b1")
+    w2_s, b2 = _vec(w2_s, D, "w2_s"), _vec(b2, D, "b2")
+    ln_w, ln_b = _vec(ln_w, D, "ln_w"), _vec(ln_b, D, "ln_b")
+    x_out = torch.empty_like(x_res)
+    xq_out = torch.empty(M, D, dtype=torch.int8, device=xq.device)
+    code = _build.library().mmt_int8_mlp_fused(
+        xq.data_ptr(), x_res.data_ptr(), w1.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+        x_out.data_ptr(), xq_out.data_ptr(), M, D, F, f32(s2), inv_s3, f32(s3), inv_s0n, eps,
+        ACTIVATIONS[act], _build.DTYPE_CODES[x_res.dtype], _build.stream_handle(xq.device))
+    _build.check("mlp_fused", code)
+    launches["mlp_fused"] += 1
+    return x_out, xq_out
 
 
 # ----------------------------------------------------------------------
@@ -456,25 +606,33 @@ def smooth_vit_params(params: Params, cfg: ViTConfig, pixel_values: torch.Tensor
     return {**params, "layers": lp}
 
 
-def layer_scalars(act_scales: torch.Tensor, cfg: ViTConfig) -> List[Dict[str, Any]]:
-    """Per-layer float32 scalars of the fused forward, from an (L, 8)
-    calibration, computed on the host in float32 as the JAX package does."""
+def layer_scalars(act_scales: torch.Tensor, cfg: ViTConfig,
+                  int8_o: bool = True) -> List[Dict[str, Any]]:
+    """Per-layer float32 scalars of the fused forward, computed on the host
+    in float32 as the JAX package does, from an (L, 4), (L, 7) or (L, 8)
+    calibration. ``merged`` (7 columns or more): the layer runs K7g, with
+    ``scales6`` = [s0, 1/sq, 1/sk, smax log2(e), sq sk sm_scale, 1/s1 or
+    sv/127 without ``int8_o``]; ``static_smax`` (8 columns): column 7 is
+    the static stabiliser, else the column is zero (the JAX pad) and the
+    kernel takes the row max. Otherwise the layer runs K7b and K3."""
     sc = act_scales.detach().float().cpu().numpy().astype(np.float32)
-    if sc.ndim != 2 or sc.shape[1] < 8:
-        raise NotImplementedError(
-            f"act_scales of shape {tuple(sc.shape)}: only (L, 8) calibrations (static softmax "
-            f"stabiliser) are ported; (L, 4) and (L, 7) need K7b or the row-max attention, "
-            f"which {_UNPORTED[3:]}")
+    if sc.ndim != 2 or sc.shape[1] not in (4, 7, 8):
+        raise ValueError(f"act_scales of shape {tuple(sc.shape)}: expected (L, 4), (L, 7) or "
+                         f"(L, 8)")
+    merged, static_smax = sc.shape[1] >= 7, sc.shape[1] >= 8
+    if not static_smax:
+        sc = np.concatenate([sc, np.zeros((sc.shape[0], 8 - sc.shape[1]), np.float32)], axis=1)
     sm_scale = np.float32((cfg.hidden_size // cfg.num_heads) ** -0.5)
     one, log2e = np.float32(1.0), np.float32(LOG2E)
     L = sc.shape[0]
     out = []
     for i, r in enumerate(sc):
+        row5 = one / r[1] if int8_o else r[6] / np.float32(127.0)
         out.append(dict(
             s0=float(r[0]), s1=float(r[1]), s2=float(r[2]), s3=float(r[3]),
-            s0_next=float(sc[(i + 1) % L, 0]),
+            s0_next=float(sc[(i + 1) % L, 0]), merged=merged, static_smax=static_smax,
             scales6=(float(r[0]), float(one / r[4]), float(one / r[5]), float(r[7] * log2e),
-                     float(r[4] * r[5] * sm_scale), float(one / r[1]))))
+                     float(r[4] * r[5] * sm_scale), float(row5)) if merged else None))
     return out
 
 
@@ -486,23 +644,37 @@ def vit_forward_int8_fused(packed: Params, cfg: ViTConfig, pixel_values: torch.T
                            bf16_scores: bool = False, ph_exp2: bool = False,
                            fast_ln: bool = False) -> torch.Tensor:
     """The fused W8A8 tower on NHWC ``pixel_values`` -> (B, N[, +1], D).
-    ``scalars``: :func:`layer_scalars` of ``act_scales``, precomputed (else
-    read from ``act_scales`` here, one device-to-host copy)."""
-    if not (int8_o and fuse_l) or bf16_qk or store_p or bf16_scores or ph_exp2 or fast_ln:
-        raise NotImplementedError(f"vit_forward_int8_fused beyond its defaults {_UNPORTED}")
-    scalars = scalars if scalars is not None else layer_scalars(act_scales, cfg)
-    eps, D = cfg.layer_norm_eps, cfg.hidden_size
-    act = ("quick_gelu_approx" if approx_gelu and cfg.hidden_act == "quick_gelu"
-           else cfg.hidden_act)
+    ``scalars``: :func:`layer_scalars` of ``act_scales`` (with ``int8_o``),
+    precomputed (else read from ``act_scales`` here, one device-to-host
+    copy). The layer body follows the calibration's shape, as in the JAX
+    package: (L, 7) and (L, 8) run K7g (int8 output only with ``int8_o``,
+    the static stabiliser and ``fuse_l``), (L, 4) runs K7b, K3 and K7d with
+    the exact activation."""
+    if bf16_qk or store_p or bf16_scores or ph_exp2 or fast_ln:
+        raise NotImplementedError(f"vit_forward_int8_fused's bf16_qk, store_p, bf16_scores, "
+                                  f"ph_exp2 and fast_ln {_UNPORTED}")
+    scalars = scalars if scalars is not None else layer_scalars(act_scales, cfg, int8_o)
+    eps, D, H = cfg.layer_norm_eps, cfg.hidden_size, cfg.num_heads
+    approx = ("quick_gelu_approx" if approx_gelu and cfg.hidden_act == "quick_gelu"
+              else cfg.hidden_act)
     x = embed_patches(packed, cfg, pixel_values)
     B, S, _ = x.shape
     M = B * S
     x2d = x.reshape(M, D).contiguous()
     xq = ln_quant(x2d, packed["ln1_w"][0], packed["ln1_b"][0], scalars[0]["s0"], eps)
     for i, sc in enumerate(scalars):
-        o8 = qkv_attn_int8(xq.view(B, S, D), packed["wqkv_q"][i], packed["wqkv_s"][i],
-                           packed["qkv_b"][i], sc["scales6"], cfg.num_heads, S)
-        xp, xq2 = oproj_ln_quant(o8.view(M, D), x2d, packed["wo_q"][i], packed["wo_s"][i],
+        wqkv, wqkv_s, qkv_b = packed["wqkv_q"][i], packed["wqkv_s"][i], packed["qkv_b"][i]
+        if sc["merged"]:
+            use_int8_o = int8_o and sc["static_smax"] and fuse_l and D // H < 128
+            o = qkv_attn_int8(xq.view(B, S, D), wqkv, wqkv_s, qkv_b, sc["scales6"], H, S,
+                              static_smax=sc["static_smax"], fuse_l=fuse_l,
+                              out_dtype=torch.int8 if use_int8_o else x2d.dtype)
+            act = approx
+        else:
+            q, k, v = qkv_int8(xq, wqkv, wqkv_s, qkv_b, sc["s0"], out_dtype=x2d.dtype)
+            o = encoder_attention(q.view(B, S, D), k.view(B, S, D), v.view(B, S, D), H, kv_len=S)
+            act = cfg.hidden_act
+        xp, xq2 = oproj_ln_quant(o.view(M, D), x2d, packed["wo_q"][i], packed["wo_s"][i],
                                  packed["o_b"][i], packed["ln2_w"][i], packed["ln2_b"][i],
                                  sc["s1"], sc["s2"], eps)
         hq = fc1_gelu_quant(xq2, packed["w1_q"][i], packed["w1_s"][i], packed["b1"][i],
@@ -518,8 +690,8 @@ _LN_LEAVES = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "ln1n_w", "ln1n_b")
 
 class ViTInt8Fused(nn.Module):
     """The fused W8A8 tower as a module: the packed tree as buffers (the
-    LayerNorm vectors in float32, as the kernels read them), the (L, 8)
-    calibration, and its host scalars. It holds no parameters and takes no
+    LayerNorm vectors in float32, as the kernels read them), the (L, 4),
+    (L, 7) or (L, 8) calibration, and its host scalars. It holds no parameters and takes no
     gradient; ``forward`` is :func:`vit_forward_int8_fused`."""
 
     def __init__(self, cfg: ViTConfig, packed: Params, act_scales: torch.Tensor):

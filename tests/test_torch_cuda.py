@@ -9,9 +9,14 @@ Shapes are small and cover the edges the main path's shapes miss: tiny head
 dims, ragged sequences, GQA groups from 1 to 8 (16 in a verify block of 64
 rows per kv head), empty slots, fully masked attention rows, verify rows
 that see no key of a split, int8 kernels at ragged row counts, S = 257 and
-196, drowned attention rows, K9 at ragged N and M, split K and both tile
-heights, and a quantised decoder on the card against the CPU. Gradients are compared relative to the largest
-gradient value (they are not of order 1): f32 1e-4, bf16 2e-2.
+196, drowned attention rows, every consume path of K7g and each output type
+of K7b, K7c with a float o, K7f against the split pair, K10, the fused tower
+under every calibration shape, K9 at ragged N and M, split K and both tile
+heights, and a quantised decoder on the card against the CPU. Gradients are
+compared relative to the largest gradient value (they are not of order 1):
+f32 1e-4, bf16 2e-2. Float attention outputs are held max-abs as the other
+float kernels (f32 1e-4, bf16 2e-2, outputs of order 1): their P.V and
+denominator sums run in another order than the twin's.
 """
 
 import numpy as np
@@ -424,6 +429,11 @@ def test_int8_kernels_refuse_what_they_do_not_take(gen):
         _build.check("ln_quant", code)
 
 
+# the kernels an (L, 8) calibration runs with the forward's defaults
+DEFAULT_TOWER = ("ln_quant", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
+                 "fc2_res_ln_quant")
+
+
 @pytest.mark.parametrize("dtype,tower", [(torch.float32, "clip"), (torch.bfloat16, "clip"),
                                          (torch.bfloat16, "siglip")])
 def test_fused_int8_tower_card_matches_cpu(gen, dtype, tower):
@@ -443,8 +453,170 @@ def test_fused_int8_tower_card_matches_cpu(gen, dtype, tower):
     card.quantize_params(values[:4].cuda(), fused=True)
     before = dict(v8.launches)
     got = card.encode(values.cuda()).float().cpu()
-    assert all(v8.launches[n] > before[n] for n in v8.launches)
+    assert all(v8.launches[n] > before[n] for n in DEFAULT_TOWER)
+    assert all(v8.launches[n] == before[n] for n in v8.launches if n not in DEFAULT_TOWER)
     want = cpu.encode(values).float()
+    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+    assert torch.isfinite(got).all() and cos.item() >= 0.999
+
+
+# ----------------------------------------------------------------------
+# K7b, K7c with a float o, K7g's other consume paths, K7f, K10
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("M,D", [(2056, 1024), (130, 768), (19, 128)])
+def test_qkv_int8_kernel(gen, out, M, D):
+    xq, wq = _i8(gen, M, D), _i8(gen, 3, D, D)
+    ws = _unif(gen, 0.5, 1.5, 3, 1, D) / (127 * 60 * D ** 0.5)
+    bias = 0.1 * torch.randn(3, 1, D, generator=gen, device="cuda")
+    kw = (dict(qkv_scales=[0.02, 0.03, 0.025]) if out == "int8"
+          else dict(out_dtype=getattr(torch, out)))
+    before = v8.launches["qkv_int8"]
+    got = v8.qkv_int8(xq, wq, ws, bias, 1.3, **kw)
+    assert v8.launches["qkv_int8"] == before + 1
+    inv3 = [v8.f32_inv(x) for x in kw["qkv_scales"]] if out == "int8" else None
+    want = v8.qkv_int8_plain(xq, wq, ws, bias, 1.3, getattr(torch, out), inv3)
+    for g, w in zip(got, want):
+        assert g.shape == (M, D)
+        if out == "int8":
+            _assert_int8_close(g, w)
+        else:
+            _assert_within_ulp(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(45, 1024), (8500, 256), (17, 128)])
+def test_oproj_ln_quant_float_o_kernel(gen, dtype, M, D):
+    o = (0.5 * torch.randn(M, D, generator=gen, device="cuda")).to(dtype)
+    wq = _i8(gen, D, D)
+    ws = _unif(gen, 0.5, 1.5, D) / (127 * 60 * D ** 0.5)
+    bias = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    x_res = torch.randn(M, D, generator=gen, device="cuda").to(dtype)
+    lnw, lnb = _unif(gen, 0.5, 1.5, D), 0.1 * torch.randn(D, generator=gen, device="cuda")
+    s1 = 1.5 / 127
+    before = v8.launches["oproj_ln_quant_float"]
+    xo, xq = v8.oproj_ln_quant(o, x_res, wq, ws, bias, lnw, lnb, s1, 0.025, 1e-5)
+    assert v8.launches["oproj_ln_quant_float"] == before + 1
+    o8 = torch.clamp(torch.round(o.float() * v8.f32_inv(s1)), -127, 127).to(torch.int8)
+    xo_ref, xq_ref = v8.res_ln_quant_plain(o8, x_res, wq, ws, bias, lnw, lnb, s1,
+                                           v8.f32_inv(0.025), 1e-5)
+    _assert_within_ulp(xo, xo_ref)
+    _assert_int8_close(xq, xq_ref)
+
+
+FORMS = {"rowmax": dict(static_smax=False), "static": dict(static_smax=True, fuse_l=False),
+         "fused_float": dict(static_smax=True, fuse_l=True)}
+FORM_NAMES = {"rowmax": "qkv_attn_int8_rowmax", "static": "qkv_attn_int8_static",
+              "fused_float": "qkv_attn_int8_float_out"}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,kv_len", [(3, 257, 16, 257), (2, 40, 4, 33)])
+def test_qkv_attn_int8_consume_paths(gen, form, dtype, B, S, H, kv_len):
+    xq, wq, ws, bias, scales6 = _qkv_case(gen, B, S, H, shift=6.0)
+    name = FORM_NAMES[form]
+    before = v8.launches[name]
+    got = v8.qkv_attn_int8(xq, wq, ws, bias, scales6, H, kv_len, out_dtype=dtype, **FORMS[form])
+    assert v8.launches[name] == before + 1 and got.dtype == dtype
+    mode = {"rowmax": "rowmax", "static": "static", "fused_float": "fused"}[form]
+    want = v8.qkv_attn_int8_plain(xq, wq, ws, bias, scales6, H, kv_len, mode=mode,
+                                  out_dtype=dtype)
+    _assert_close(got[:, :kv_len], want[:, :kv_len], dtype)
+    assert want.abs().float().mean() > 0.05
+
+
+def test_qkv_attn_int8_static_drowned_rows_and_refusals(gen):
+    # without fuse_l, a static stabiliser far above every logit still gives 0
+    xq, wq, ws, bias, scales6 = _qkv_case(gen, 2, 50, 4, shift=400.0)
+    got = v8.qkv_attn_int8(xq, wq, ws, bias, scales6, 4, 50, fuse_l=False,
+                           out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and not got.any()
+    with pytest.raises(ValueError, match="fuse_l"):
+        v8.qkv_attn_int8(xq, wq, ws, bias, scales6, 4, 50, fuse_l=False)  # int8 out
+
+
+def _mlp_case(gen, dtype, M, D, F):
+    xq, w1, w2 = _i8(gen, M, D), _i8(gen, F, D), _i8(gen, D, F)
+    w1_s = _unif(gen, 0.5, 1.5, F) / (127 * 40 * D ** 0.5)
+    b1 = 0.2 * torch.randn(F, generator=gen, device="cuda")
+    w2_s = _unif(gen, 0.5, 1.5, D) / (127 * 60 * F ** 0.5)
+    b2 = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    x_res = torch.randn(M, D, generator=gen, device="cuda").to(dtype)
+    lnw, lnb = _unif(gen, 0.5, 1.5, D), 0.1 * torch.randn(D, generator=gen, device="cuda")
+    return xq, x_res, w1, w1_s, b1, w2, w2_s, b2, lnw, lnb
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_pytorch_tanh", "gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F", [(2056, 1024, 4096), (130, 768, 3072), (19, 128, 256)])
+def test_mlp_fused_kernel(gen, act, dtype, M, D, F):
+    args = _mlp_case(gen, dtype, M, D, F)
+    scal = (0.04, 0.05, 0.06, 1e-5)
+    before = v8.launches["mlp_fused"]
+    xo, xq = v8.mlp_fused(*args, *scal, act)
+    assert v8.launches["mlp_fused"] == before + 1
+    xo_ref, xq_ref = v8.mlp_fused_plain(*args, 0.04, v8.f32_inv(0.05), 0.05, v8.f32_inv(0.06),
+                                        1e-5, act)
+    _assert_within_ulp(xo, xo_ref)
+    _assert_int8_close(xq, xq_ref)
+    assert xq_ref.abs().float().mean() > 5
+    # the split pair on the card gives the same bits (fc2's int32 sum is exact)
+    xq0, x_res, w1, w1_s, b1, w2, w2_s, b2, lnw, lnb = args
+    hq = v8.fc1_gelu_quant(xq0, w1, w1_s, b1, 0.04, 0.05, act)
+    xo2, xq2 = v8.fc2_res_ln_quant(hq, x_res, w2, w2_s, b2, lnw, lnb, 0.05, 0.06, 1e-5)
+    assert torch.equal(xo, xo2) and torch.equal(xq, xq2)
+
+
+def test_mlp_fused_refuses_the_approximate_sigmoid(gen):
+    args = _mlp_case(gen, torch.bfloat16, 8, 128, 256)
+    with pytest.raises(ValueError, match="quick_gelu_approx"):
+        v8.mlp_fused(*args, 0.04, 0.05, 0.06, 1e-5, "quick_gelu_approx")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,kv_len", [(3, 257, 16, 257), (2, 40, 4, 33), (1, 24, 1, 20)])
+def test_encoder_attention_int8_kernel(gen, dtype, B, S, H, kv_len):
+    q, k, v = (_i8(gen, B, S, H * 64) for _ in range(3))
+    sq = sk = 2.0 / 127
+    qk, pv = sq * sk * 64 ** -0.5, 1.0 / 127 ** 2  # v = v8 / 127: outputs of order 1
+    before = enc.launches["encoder_attention_int8"]
+    got = enc.encoder_attention_int8(q, k, v, H, qk, pv, kv_len, out_dtype=dtype)
+    assert enc.launches["encoder_attention_int8"] == before + 1 and got.dtype == dtype
+    want = enc.encoder_attention_int8_plain(q, k, v, H, v8.f32(qk), v8.f32(pv), kv_len, dtype)
+    _assert_close(got[:, :kv_len], want[:, :kv_len], dtype)
+    assert want.abs().float().mean() > 0.03
+
+
+@pytest.mark.parametrize("cols,kw,names", [
+    (4, {}, ("qkv_int8", "encoder_attention", "oproj_ln_quant_float")),
+    (7, {}, ("qkv_attn_int8_rowmax", "oproj_ln_quant_float")),
+    (8, dict(int8_o=False), ("qkv_attn_int8_float_out", "oproj_ln_quant_float")),
+    (8, dict(fuse_l=False), ("qkv_attn_int8_static", "oproj_ln_quant_float")),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_int8_tower_calibrations_card_matches_cpu(gen, cols, kw, names, dtype):
+    from multimeditron_torch.models.vit import ViT, ViTConfig
+    from multimeditron_torch.models.vit_quant import calibrate_act_scales, vit_params_tree
+
+    cfg = ViTConfig(image_size=56, patch_size=14, hidden_size=256, num_layers=2, num_heads=4,
+                    intermediate_size=512, dtype=dtype)
+    vit = ViT(cfg, device="cpu")
+    vit.init_weights(torch.Generator().manual_seed(0))
+    tree = vit_params_tree(vit)
+    pixels = torch.randn(6, 56, 56, 3, generator=torch.Generator().manual_seed(1))
+    scales = (calibrate_act_scales(tree, cfg, pixels) if cols == 4
+              else v8.calibrate_vit_int8_fused(tree, cfg, pixels)[:, :cols])
+    packed = v8.pack_vit_int8_fused(tree)
+    want = v8.vit_forward_int8_fused(packed, cfg, pixels, scales, **kw).float()
+    card = {k: t.cuda() for k, t in packed.items()}
+    before = dict(enc.launches, **v8.launches)
+    got = v8.vit_forward_int8_fused(card, cfg, pixels.cuda(), scales.cuda(), **kw).float().cpu()
+    after = dict(enc.launches, **v8.launches)
+    assert all(after[n] > before[n] for n in names)
+    assert (after["qkv_attn_int8"] == before["qkv_attn_int8"]
+            and after["oproj_ln_quant"] == before["oproj_ln_quant"])
     cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
     assert torch.isfinite(got).all() and cos.item() >= 0.999
 

@@ -1,6 +1,8 @@
-"""Port parity: the W8A8 image tower (fused kernels K7a/K7c/K7d/K7e/K7g,
-their host side, the unfused int8 tower, the int8 projector and the image
-modality's ``quantize_params``) against the JAX package on the CPU.
+"""Port parity: the W8A8 image tower (fused kernels K7a/K7c/K7d/K7e/K7g with
+(L, 8) calibrations, their host side, the unfused int8 tower, the int8
+projector and the image modality's ``quantize_params``) against the JAX
+package on the CPU. The other calibrations and epilogues, K7b, K7f and K10
+are in tests/test_torch_vit_int8_variants.py.
 
 The JAX Pallas kernels run in interpret mode, as tests/test_vit_int8_fused.py
 runs them; the port's wrappers run their plain twins (CPU tensors). Inputs
@@ -187,17 +189,18 @@ def test_qkv_attn_int8_matches_pallas(S, kv_len, shift):
 
 
 def test_unported_variants_raise():
+    # the flags that measured as washes on the TPU stay refused; (L, 4) and
+    # (L, 7) calibrations, int8_o=False and fuse_l=False are ported
+    # (tests/test_torch_vit_int8_variants.py)
     xq, wq, ws, bias, s6 = (torch.from_numpy(a) for a in _qkv_case(4, 1, 8, 128, 6.0))
     for flag in ("bf16_qk", "store_p", "bf16_scores", "ph_exp2", "allow_packed"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
             tf.qkv_attn_int8(xq, wq, ws, bias, s6.tolist(), 4, 8, **{flag: True})
     cfg = _port_cfg(_small_cfg("float32"))
-    for scales in (torch.ones(3, 4), torch.ones(3, 7)):
+    for flag in ("bf16_qk", "store_p", "bf16_scores", "ph_exp2", "fast_ln"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            tf.layer_scalars(scales, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        tf.vit_forward_int8_fused({}, cfg, torch.zeros(1, 28, 28, 3), torch.ones(3, 8),
-                                  fast_ln=True)
+            tf.vit_forward_int8_fused({}, cfg, torch.zeros(1, 28, 28, 3), torch.ones(3, 8),
+                                      **{flag: True})
 
 
 # ----------------------------------------------------------------------
