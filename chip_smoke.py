@@ -10,9 +10,12 @@ Phases, each of which raises on failure (non-zero exit):
    power limit;
 2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/;
 3. kernels: each kernel (K3 encoder attention and its gradient, K4 ring
-   decode attention, K6 ring verify attention, K5 ring fold, K1 flash forward,
-   K2a/K2b flash backward) against its plain PyTorch twin on the card, at the
-   main paths' shapes, in float32 and bfloat16; the W8A8 ViT kernels (K7a
+   decode attention, K8 paged decode attention (the serving shape and a
+   4,096-token case), K6 ring verify attention, K5 ring fold, K1 flash
+   forward (the training shape, and its decode form: Sq = 1 over a masked
+   640-key cache), K2a/K2b flash backward) against its plain PyTorch twin on
+   the card, at the main paths' shapes, in float32 and bfloat16; the W8A8 ViT
+   kernels (K7a
    ln_quant, K7g qkv_attn_int8 in each consume path: int8 out, float out,
    static stabiliser without fuse_l, row max; K7b qkv_int8 with bf16 and int8
    outputs, K7c oproj_ln_quant with an int8 and a bf16 o, K7d fc1_gelu_quant,
@@ -29,7 +32,9 @@ Phases, each of which raises on failure (non-zero exit):
    same engine and weights on the CPU: greedy tokens, speculative greedy
    (k = 2, 4) equal to plain greedy, speculative sampling (k = 2, 4) equal
    across k and devices, a forked group, a chunked long prompt and staggered
-   admission;
+   admission; the same through kv_mode="slab" (greedy equal to paged greedy,
+   sampled, speculative, chunked, submit_group's fallback, quantize_llm), and
+   generate() greedy and sampled;
 5. serving at full width: seeded random weights at Llama-3.1-8B widths plus
    the CLIP ViT-L/14 tower in bfloat16, 8 requests of 512 prompt tokens with
    one 224x224 uint8 image each and 64 new tokens, through submit() and
@@ -71,7 +76,17 @@ Phases, each of which raises on failure (non-zero exit):
    launches K7b and K3 and no K7g, (L, 7) K7g's row-max form and no K3.
    Then one batch each of the (L, 8) tower with int8_o=False and with
    fuse_l=False, and one of the ops without a caller composed (K7b with int8
-   outputs, K10, K7c with a float o, K7f), each cosine >= 0.99.
+   outputs, K10, K7c with a float o, K7f), each cosine >= 0.99;
+13. the slab KV mode and generate() at full width: phase 5's model and
+   requests through kv_mode="slab" (TTFT, decode tok/s, peak memory, the busy
+   share of one decode chunk; K1 launches 32 times a live decode step, K3 24
+   times a prefill call, K4, K5, K6 and K8 not at all), phase 8's
+   speculative mix through slab mode (k = 4, greedy; the forked group becomes
+   four requests), generate() on 8 right-padded 512-token prompts with one
+   image each, 64 new tokens, greedy (K1 32 times a live step); then K8
+   through its own entry point: the slab run's cache laid out in pages
+   through a shuffled page table, one paged_attention call a layer, against
+   K1 over the contiguous cache.
 
 Phase 3 also holds K9 (the weight-only int8 matmul) against its twin at the
 Llama-3.1-8B projection shapes (M = 8, 40 and 4,096, and the lm_head at
@@ -99,6 +114,7 @@ import torch.nn.functional as F
 
 from multimeditron_torch import _build
 from multimeditron_torch.modalities.image_clip import ImageConfig
+from multimeditron_torch.models.generation import generate
 from multimeditron_torch.models.llama import LlamaConfig
 from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel, TrainingMode
 from multimeditron_torch.ops import encoder_attention as enc
@@ -140,6 +156,9 @@ KERNELS = {
     "ring_decode_attention": dict(
         module=paged, source="multimeditron_torch/csrc/ring_decode.cu",
         replaces="multimeditron_tpu/ops/paged_attention.py:401"),
+    "paged_attention": dict(
+        module=paged, source="multimeditron_torch/csrc/ring_decode.cu",
+        replaces="multimeditron_tpu/ops/paged_attention.py:95"),
     "ring_verify_attention": dict(
         module=paged, source="multimeditron_torch/csrc/ring_verify.cu",
         replaces="multimeditron_tpu/ops/paged_attention.py:634"),
@@ -149,6 +168,12 @@ KERNELS = {
     "flash_attention_fwd": dict(
         module=fl, source="multimeditron_torch/csrc/flash_fwd.cu",
         replaces="multimeditron_tpu/ops/flash_attention.py:90"),
+    # K1's decode form (Sq = 1, the slab engine and generate): its own entry,
+    # the same kernel and launch counter
+    "flash_attention_fwd_decode": dict(
+        module=fl, source="multimeditron_torch/csrc/flash_fwd.cu",
+        replaces="multimeditron_tpu/ops/flash_attention.py:90",
+        counter="flash_attention_fwd"),
     "flash_attention_bwd_dq": dict(
         module=fl, source="multimeditron_torch/csrc/flash_bwd.cu",
         replaces="multimeditron_tpu/ops/flash_attention.py:287"),
@@ -219,6 +244,9 @@ TOWER_KERNELS = ("encoder_attention", "ln_quant", "qkv_int8", "qkv_attn_int8",
                  "oproj_ln_quant", "oproj_ln_quant_float", "fc1_gelu_quant", "fc2_res_ln_quant",
                  "mlp_fused", "encoder_attention_int8")
 DECODE = ("ring_decode_attention", "fold_ring_into_pages")
+# the kernels a slab-mode engine may not launch
+PAGED_KERNELS = ("paged_attention", "ring_decode_attention", "ring_verify_attention",
+                 "fold_ring_into_pages")
 # Llama-3.1-8B projections, (K, N), in a decode step's order; 4 K9 calls a
 # layer and the lm_head make 129 a step
 LLAMA_8B_PROJ = {"qkv": (4096, 6144), "o": (4096, 4096), "gateup": (4096, 28672),
@@ -240,8 +268,14 @@ def phase(msg: str) -> None:
     log(f"{msg} (t = {time.perf_counter() - T_START:.0f} s)")
 
 
+def counter(name: str) -> tuple:
+    """(module launch dict, key) holding kernel ``name``'s launch count."""
+    k = KERNELS[name]
+    return k["module"].launches, k.get("counter", name)
+
+
 def launch_counts(names=SERVING) -> dict:
-    return {name: KERNELS[name]["module"].launches[name] for name in names}
+    return {name: counter(name)[0][counter(name)[1]] for name in names}
 
 
 def check_tower_launches(tower: str, counts: dict, forwards: int, layers: int = 24) -> None:
@@ -261,7 +295,8 @@ def check_tower_launches(tower: str, counts: dict, forwards: int, layers: int = 
 
 def reset_launch_counts(names=tuple(KERNELS)) -> None:
     for name in names:
-        KERNELS[name]["module"].launches[name] = 0
+        launches, key = counter(name)
+        launches[key] = 0
     wo.launches["w8a8_matmul"] = 0  # not a kernel: where W8A8 fired
 
 
@@ -421,6 +456,101 @@ def check_ring_decode(dtype, gen) -> dict:
                 library_ms=None,  # no single PyTorch call gathers pages + ring
                 **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * c["q"].element_size(),
                         4 * H * D * keys))
+
+
+def k8_case(dtype, gen, lengths, pm):
+    """Llama-3.1-8B decode shapes for K8: 32 heads over 8 kv heads, D = 128,
+    pages of 128, one layer's pool; slot b's lengths[b] tokens in pages of a
+    shuffled page table."""
+    B, H, Hkv, D, P = len(lengths), 32, 8, 128, 128
+    n_pages = 1 + B * pm
+    ids = np.random.default_rng(2).permutation(np.arange(1, n_pages))
+    table = np.zeros((B, pm), np.int32)
+    for b, n in enumerate(lengths):
+        used = -(-n // P)
+        table[b, :used] = ids[b * pm: b * pm + used]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    return (randn(B, H, D), randn(Hkv, n_pages, P, D), randn(Hkv, n_pages, P, D),
+            torch.from_numpy(table).cuda(), torch.tensor(lengths, dtype=torch.int32).cuda())
+
+
+def gathered_sdpa(q, k_pages, v_pages, page_table, lengths):
+    """A partial library yardstick for K8: K/V gathered to contiguous memory
+    beforehand (not timed), then one SDPA call with the key mask."""
+    B, H, D = q.shape
+    Hkv, _, P, _ = k_pages.shape
+    N = page_table.shape[1] * P
+    table = page_table.long()
+    k = k_pages[:, table].transpose(0, 1).reshape(B, Hkv, N, D)
+    v = v_pages[:, table].transpose(0, 1).reshape(B, Hkv, N, D)
+    mask = (torch.arange(N, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def check_paged_attention(dtype, gen) -> dict:
+    """K8 at the serving shape (8 slots, lengths 513..576 and one empty
+    slot, pages_max 5: times and bound from this case) and a long case (8
+    slots of 3,585..4,096 tokens, pages_max 32: many key splits)."""
+    t = str(dtype)[6:]
+    long = k8_case(dtype, gen, [4096, 3585, 3900, 4000, 3700, 4095, 3800, 3990], 32)
+    err_long = check_close(f"K8 {t} 4,096 tokens", paged.paged_attention(*long),
+                           paged.paged_attention_plain(*long), TOL[dtype])
+    c = k8_case(dtype, gen, [513, 530, 0, 576, 541, 560, 527, 550], 5)
+    got = paged.paged_attention(*c)
+    err = check_close(f"K8 {t} serving", got, paged.paged_attention_plain(*c), TOL[dtype])
+    if got[2].any():
+        raise AssertionError("K8: the slot of length 0 is not an exact zero row")
+    q = c[0]
+    B, H, D = q.shape
+    Hkv = c[1].shape[0]
+    keys = int(c[4].sum())  # the keys the slots' lengths cover
+    return dict(max_abs_err=max(err, err_long),
+                ms=time_ms(lambda: paged.paged_attention(*c)),
+                device_ms=device_ms(lambda: paged.paged_attention(*c)),
+                plain_ms=time_ms(lambda: paged.paged_attention_plain(*c)),
+                library_ms=time_ms(gathered_sdpa(*c)),
+                library_note="partial: SDPA over K/V gathered to contiguous memory "
+                             "beforehand (the gather is not timed)",
+                long_case=dict(ms=time_ms(lambda: paged.paged_attention(*long)),
+                               device_ms=device_ms(lambda: paged.paged_attention(*long)),
+                               plain_ms=time_ms(lambda: paged.paged_attention_plain(*long)),
+                               library_ms=time_ms(gathered_sdpa(*long)),
+                               **bound(dtype, (2 * int(long[4].sum()) * Hkv * D + 2 * B * H * D)
+                                       * q.element_size(), 4 * H * D * int(long[4].sum()))),
+                # the page rows the lengths cover (K and V), q read, o written
+                **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * q.element_size(),
+                        4 * H * D * keys))
+
+
+def check_flash_decode(dtype, gen) -> dict:
+    """K1's decode form, as the slab engine and generate() launch it: B = 8,
+    H = 32, Hkv = 8, Sq = 1 over a 640-key cache, D = 128, non-causal, a key
+    mask of each slot's length (513..576)."""
+    B, H, Hkv, Skv, D = 8, 32, 8, 640, 128
+    lengths = torch.tensor([513, 530, 520, 576, 541, 560, 527, 550], device="cuda")
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda", dtype=dtype)
+    k, v = (torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda", dtype=dtype)
+            for _ in range(2))
+    kv_mask = (torch.arange(Skv, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    fwd = (q, k, v, kv_mask, False, D ** -0.5, Skv - 1)
+    o, _ = fl._fwd_kernel(*fwd)
+    err = check_close(f"K1 decode {str(dtype)[6:]}", o,
+                      fl.flash_attention_fwd_plain(*fwd[:-1])[0], TOL[dtype])
+    allowed = (kv_mask != 0)[:, None, None, :]
+    keys = int(lengths.sum())
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: fl._fwd_kernel(*fwd)),
+                device_ms=device_ms(lambda: fl._fwd_kernel(*fwd)),
+                plain_ms=time_ms(lambda: fl.flash_attention_fwd_plain(*fwd[:-1])),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=allowed, enable_gqa=True)),
+                # the valid keys' K and V rows, q, o and the mask; lse written
+                **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * q.element_size()
+                        + kv_mask.numel() * 4 + B * H * 4, 4 * H * D * keys))
 
 
 def verify_case(dtype, gen, ring_rows):
@@ -919,7 +1049,8 @@ def check_f32_card_vs_cpu() -> None:
     greedy; speculative greedy (k = 2, 4) equal to plain greedy; speculative
     sampling (k = 2, 4, temperature 0.7) equal across k and devices; a forked
     group (sampled), a 100-token prompt over buckets of 32/64 (chunked) and
-    staggered admission."""
+    staggered admission; the int8 LLM; the same through kv_mode="slab"; and
+    generate() on a right-padded batch with an image."""
     cpu_model, gpu_model = small_f32_models()
     base = dict(max_slots=4, max_seq_len=128, prefill_buckets=(32, 64), page_size=16,
                 decode_chunk=8, do_sample=False, max_new_tokens=12)
@@ -985,6 +1116,52 @@ def check_f32_card_vs_cpu() -> None:
     if w8_spec != w8_plain:
         raise AssertionError("w8a8_prefill: speculative greedy (k=2) differs from plain greedy")
 
+    # the slab KV mode: decode attention is K1 at Sq = 1, no paged kernel runs
+    slab = dict(kv_mode="slab")
+    s_plain, counts = both("slab greedy", lambda e: e.generate(batches), **slab)
+    if s_plain != plain:
+        raise AssertionError("slab greedy differs from paged greedy on the card")
+    if not counts["flash_attention_fwd"] or any(counts[n] for n in PAGED_KERNELS):
+        raise AssertionError(f"slab engine launches: {counts}")
+    both("slab sampled", lambda e: e.generate(batches), **slab, **sampled)
+    s_sampled = []
+    for k in (2, 4):
+        spec, counts = both(f"slab speculative k={k} greedy", lambda e: e.generate(batches),
+                            speculative_k=k, **slab)
+        if spec != s_plain:
+            raise AssertionError(f"slab speculative greedy (k={k}) differs from plain greedy")
+        if any(counts[n] for n in PAGED_KERNELS):
+            raise AssertionError(f"slab speculative engine launches: {counts}")
+        s_sampled.append(both(f"slab speculative k={k} sampled", lambda e: e.generate(batches),
+                              speculative_k=k, **slab, **sampled)[0])
+    if s_sampled[0] != s_sampled[1]:
+        raise AssertionError("slab speculative sampling depends on k")
+    both("slab chunked 100-token prompt", lambda e: e.generate([long_prompt] + batches[1:]),
+         **slab)
+    group = both("slab submit_group of 3 (independent requests), sampled",
+                 lambda e: e.generate([batches[0]] * 3, group_size=3), **slab, **sampled)[0]
+    if len(group) != 3:
+        raise AssertionError("slab submit_group did not queue three requests")
+    _, counts = both("slab quantize_llm greedy", lambda e: e.generate(batches),
+                     quantize_llm=True, **slab)
+    if not counts["wo_matmul"]:
+        raise AssertionError(f"slab quantize_llm engine launches: {counts}")
+
+    # generate(): 3 right-padded prompts (30, 20 and 50 tokens), an image in
+    # the first, greedy and sampled
+    mask = (np.arange(50)[None, :] < np.asarray([30, 20, 50])[:, None]).astype(np.int32)
+    gbatch = {"input_ids": rng.integers(2, 1024, (3, 50)).astype(np.int32) * mask,
+              "attention_mask": mask, "mm_inputs": batches[0]["mm_inputs"]}
+    for name, kw in (("greedy", dict(do_sample=False)),
+                     ("sampled", dict(temperature=0.7, top_k=50, top_p=0.9,
+                                      key=prng.prng_key(5)))):
+        on_card = generate(gpu_model, gbatch, max_new_tokens=12, **kw).cpu()
+        on_cpu = generate(cpu_model, gbatch, max_new_tokens=12, **kw)
+        log(f"  generate {name}: card {on_card.tolist()}")
+        if not torch.equal(on_card, on_cpu):
+            log(f"  generate {name}: cpu  {on_cpu.tolist()}")
+            raise AssertionError(f"generate on the card disagrees with the CPU: {name}")
+
 
 def full_width_model() -> MultimodalModel:
     """Llama-3.1-8B widths + the default CLIP ViT-L/14 tower, bf16, seeded."""
@@ -1015,6 +1192,29 @@ def check_int8_llm_launches(counts: dict, steps: int, prefill_calls: int) -> Non
     if counts["w8a8_matmul"] != W8A8_PER_PREFILL * prefill_calls:
         raise AssertionError(f"W8A8 products are not {W8A8_PER_PREFILL} a prefill call "
                              f"and 0 in decode: {counts}")
+
+
+def check_requests(reqs, vocab: int, budget: int = 64) -> None:
+    """Every request finished with 1..budget tokens inside the vocab."""
+    for r in reqs:
+        if r.finish_reason is None or not 1 <= len(r.tokens) <= budget:
+            raise AssertionError(f"request {r.request_id}: {r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
+        if not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"request {r.request_id}: token outside the vocab")
+
+
+def latency(reqs) -> dict:
+    """TTFT percentiles (submit -> first token) and decode tok/s (tokens
+    after each request's first / (last finish - last first token))."""
+    ttfts = sorted(r.ttft for r in reqs)
+    first = max(r.first_token_time for r in reqs)
+    last = max(r.finish_time for r in reqs)
+    return dict(ttft_p50_ms=statistics.median(ttfts) * 1000,
+                ttft_p95_ms=float(np.percentile(ttfts, 95)) * 1000,
+                ttft_max_ms=ttfts[-1] * 1000,
+                decode_tok_per_s=sum(len(r.tokens) - 1 for r in reqs) / (last - first),
+                tokens=sum(len(r.tokens) for r in reqs))
 
 
 def logit_fidelity(ref: torch.Tensor, got: torch.Tensor) -> dict:
@@ -1060,12 +1260,7 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
                 decode_chunks=engine.n_decode_chunks)
     log(f"  launches: {counts}; work: {work}")
 
-    for r in reqs:
-        if r.finish_reason is None or not 1 <= len(r.tokens) <= 64:
-            raise AssertionError(f"request {r.request_id}: {r.finish_reason}, "
-                                 f"{len(r.tokens)} tokens")
-        if not all(0 <= t < vocab for t in r.tokens):
-            raise AssertionError(f"request {r.request_id}: token outside the vocab")
+    check_requests(reqs, vocab)
     check_tower_launches(tower, counts, work["prefill_calls"])
     if counts["ring_decode_attention"] < 32 * work["decode_steps"]:
         raise AssertionError("K4 launched fewer than 32 times per decode step")
@@ -1119,19 +1314,11 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
     prefill = busy_profile(prefill_only)
     log(f"  one 8-request prefill: {prefill}")
 
-    ttfts = sorted(r.ttft for r in reqs)
-    first = max(r.first_token_time for r in reqs)
-    last = max(r.finish_time for r in reqs)
-    decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
     out = dict(
-        ttft_p50_ms=statistics.median(ttfts) * 1000,
-        ttft_p95_ms=float(np.percentile(ttfts, 95)) * 1000,
-        ttft_max_ms=ttfts[-1] * 1000,
-        decode_tok_per_s=decode_tokens / (last - first),
+        **latency(reqs),
         prefill_profile=prefill,
         wall_s=wall,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-        tokens=sum(len(r.tokens) for r in reqs),
         launches=counts, **work, **({"fidelity": fidelity} if fidelity else {}))
     log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, p95 {out['ttft_p95_ms']:.1f} ms, decode "
         f"{out['decode_tok_per_s']:.1f} tok/s over {work['decode_steps']} steps, peak memory "
@@ -1179,12 +1366,7 @@ def run_spec_full_width(model: MultimodalModel, int8_llm: bool = False) -> dict:
                 slot_steps=engine.spec_slot_steps, emitted=engine.spec_emitted)
     log(f"  launches: {counts}; work: {work}; page_ref max after admission {shared}")
 
-    for r in reqs:
-        if r.finish_reason is None or not 1 <= len(r.tokens) <= 64:
-            raise AssertionError(f"request {r.request_id}: {r.finish_reason}, "
-                                 f"{len(r.tokens)} tokens")
-        if not all(0 <= t < vocab for t in r.tokens):
-            raise AssertionError(f"request {r.request_id}: token outside the vocab")
+    check_requests(reqs, vocab)
     if shared != 4:
         raise AssertionError(f"the group's prompt pages were held {shared} times, not 4")
     if counts["ring_verify_attention"] < 32 * work["verify_steps"]:
@@ -1198,24 +1380,239 @@ def run_spec_full_width(model: MultimodalModel, int8_llm: bool = False) -> dict:
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
 
-    ttfts = sorted(r.ttft for r in reqs)
-    first = max(r.first_token_time for r in reqs)
-    last = max(r.finish_time for r in reqs)
-    decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
     out = dict(
-        ttft_p50_ms=statistics.median(ttfts) * 1000,
-        ttft_p95_ms=float(np.percentile(ttfts, 95)) * 1000,
-        ttft_max_ms=ttfts[-1] * 1000,
-        decode_tok_per_s=decode_tokens / (last - first),
+        **latency(reqs),
         accepted_per_slot_step=work["emitted"] / max(work["slot_steps"], 1),
         wall_s=wall,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-        tokens=sum(len(r.tokens) for r in reqs),
         launches=counts, **work)
     log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s "
         f"over {work['verify_steps']} verify steps, {out['accepted_per_slot_step']:.3f} tokens "
         f"per slot-step, peak memory {out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
     return out
+
+
+# ----------------------------------------------------------------------
+# Phase 13: the slab KV mode, generate() and K8 at full width
+# ----------------------------------------------------------------------
+SLAB_CHECKED = ("encoder_attention", "flash_attention_fwd") + PAGED_KERNELS
+
+
+def check_slab_launches(model: MultimodalModel, counts: dict, decode_steps: int,
+                        prefill_calls: int) -> None:
+    """K1 runs once a decoder layer (32 at 8B) a live decode step (no K1 in a
+    prefill or a verify block: per-slot offsets take the plain path), K3 once
+    a tower layer (24) a prefill call, no paged kernel at all."""
+    llm_layers = model.config.llm.num_layers
+    tower_layers = model.modalities["image"].vit_cfg.num_layers
+    if counts["flash_attention_fwd"] != llm_layers * decode_steps:
+        raise AssertionError(f"K1 launched {counts['flash_attention_fwd']} times, not "
+                             f"{llm_layers} x {decode_steps} live decode steps: {counts}")
+    if counts["encoder_attention"] != tower_layers * prefill_calls:
+        raise AssertionError(f"K3 launched {counts['encoder_attention']} times, not "
+                             f"{tower_layers} x {prefill_calls} prefill calls: {counts}")
+    if any(counts[n] for n in PAGED_KERNELS):
+        raise AssertionError(f"a paged kernel ran in slab mode: {counts}")
+
+
+def run_slab_serving(model: MultimodalModel, rng) -> tuple:
+    """Phase 5's configuration and requests through kv_mode="slab"; then the
+    busy share of one decode chunk. Returns (results, the engine)."""
+    vocab = model.config.llm.vocab_size
+    engine = ServingEngine(model, EngineConfig(
+        max_slots=8, max_seq_len=640, prefill_buckets=(512,), decode_chunk=8,
+        temperature=0.7, kv_mode="slab"))
+    log(f"  slab engine: KV cache "
+        f"{2 * engine.state['k'].numel() * engine.state['k'].element_size() / 1e9:.3f} GB")
+
+    def requests():
+        return [make_request(rng, vocab, 512, image_size=224, patch=14) for _ in range(8)]
+
+    engine.generate(requests(), max_new_tokens=4)  # warm-up; not measured
+    batches = requests()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    engine.n_prefill_calls = engine.n_decode_steps = engine.n_decode_chunks = 0
+    t0 = time.time()
+    reqs = [engine.submit(b, max_new_tokens=64) for b in batches]
+    engine.run()
+    wall = time.time() - t0
+    counts = launch_counts(SLAB_CHECKED)
+    work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=engine.n_decode_steps,
+                decode_chunks=engine.n_decode_chunks)
+    log(f"  launches: {counts}; work: {work}")
+    check_requests(reqs, vocab)
+    check_slab_launches(model, counts, work["decode_steps"], work["prefill_calls"])
+    out = dict(**latency(reqs), wall_s=wall,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, **work)
+    # one decode chunk of 8 live steps, traced: admit 8 requests and run
+    # their first chunk, then trace the next
+    for b in requests():
+        engine.submit(b, max_new_tokens=24)
+    engine.step()
+    out["decode_chunk_profile"] = busy_profile(engine.step)
+    engine.run()
+    log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, p95 {out['ttft_p95_ms']:.1f} ms, decode "
+        f"{out['decode_tok_per_s']:.1f} tok/s over {work['decode_steps']} steps, peak memory "
+        f"{out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s; one decode chunk "
+        f"{out['decode_chunk_profile']}")
+    return out, engine
+
+
+def run_slab_spec(model: MultimodalModel, rng) -> dict:
+    """Phase 8's speculative mix (k = 4, greedy) through kv_mode="slab": 3
+    requests of 512 tokens, submit_group(4) over one 512-token prompt (four
+    independent requests in slab mode) and a 1,000-token prompt in two
+    chunks, each with one image and 64 new tokens."""
+    vocab = model.config.llm.vocab_size
+    engine = ServingEngine(model, EngineConfig(
+        max_slots=8, max_seq_len=1152, prefill_buckets=(512,), decode_chunk=8,
+        speculative_k=4, do_sample=False, kv_mode="slab"))
+
+    def request(n):
+        return make_request(rng, vocab, n, image_size=224, patch=14)
+
+    engine.generate([request(512)], max_new_tokens=4)  # warm-up; not measured
+    batches = [request(512) for _ in range(3)]
+    group_prompt, long_prompt = request(512), request(1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    engine.n_prefill_calls = engine.spec_verify_steps = 0
+    engine.spec_slot_steps = engine.spec_emitted = 0
+    t0 = time.time()
+    reqs = [engine.submit(b, max_new_tokens=64) for b in batches]
+    group = engine.submit_group(group_prompt, 4, max_new_tokens=64)
+    reqs += group + [engine.submit(long_prompt, max_new_tokens=64)]
+    engine.run()
+    wall = time.time() - t0
+    counts = launch_counts(SLAB_CHECKED)
+    work = dict(prefill_calls=engine.n_prefill_calls, verify_steps=engine.spec_verify_steps,
+                slot_steps=engine.spec_slot_steps, emitted=engine.spec_emitted)
+    log(f"  launches: {counts}; work: {work}")
+    check_requests(reqs, vocab)
+    if len(group) != 4 or any(r.forks for r in group):
+        raise AssertionError("slab submit_group did not queue four independent requests")
+    if work["verify_steps"] == 0:
+        raise AssertionError("no verify step ran")
+    check_slab_launches(model, counts, 0, work["prefill_calls"])
+    out = dict(**latency(reqs),
+               accepted_per_slot_step=work["emitted"] / max(work["slot_steps"], 1),
+               wall_s=wall, max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, **work)
+    log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s "
+        f"over {work['verify_steps']} verify steps, {out['accepted_per_slot_step']:.3f} tokens "
+        f"per slot-step, wall {wall:.2f} s")
+    return out
+
+
+def run_generate(model: MultimodalModel, rng, max_new_tokens: int = 64) -> dict:
+    """generate() on 8 right-padded prompts of 449..512 tokens in a
+    512-wide batch, one uint8 224x224 image each, greedy: TTFT (a call for
+    one token: prefill and the first token), then the full call."""
+    vocab, B, S, n_emb = model.config.llm.vocab_size, 8, 512, 256
+    lens = np.asarray([512, 449, 500, 470, 511, 480, 490, 460])
+    mask = (np.arange(S)[None, :] < lens[:, None]).astype(np.int32)
+    batch = {"input_ids": rng.integers(2, vocab, (B, S)).astype(np.int32) * mask,
+             "attention_mask": mask,
+             "mm_inputs": {"image": {
+                 "values": rng.integers(0, 256, (B, 224, 224, 3)).astype(np.uint8),
+                 "batch_idx": np.repeat(np.arange(B, dtype=np.int32), n_emb),
+                 "token_pos": np.tile(np.arange(8, 8 + n_emb, dtype=np.int32), B)}}}
+    generate(model, batch, max_new_tokens=2, do_sample=False)  # warm-up; not measured
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, batch, max_new_tokens=n, do_sample=False)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, ttft = timed(1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out, wall = timed(max_new_tokens)
+    counts = launch_counts(SLAB_CHECKED)
+    out = out.cpu()
+    eos = model.config.eos_token_idx
+    # the loop's live steps: step s runs while some row of out[:, :s] has no EOS
+    live = sum(1 for s in range(1, max_new_tokens) if not (out[:, :s] == eos).any(dim=1).all())
+    log(f"  launches: {counts}; live decode steps {live}")
+    if out.shape != (B, max_new_tokens) or not ((out >= 0) & (out < vocab)).all():
+        raise AssertionError(f"generate output {tuple(out.shape)} not shaped / in the vocab")
+    check_slab_launches(model, counts, live, 1)
+    res = dict(ttft_ms=ttft * 1000, wall_s=wall, decode_steps=live,
+               decode_tok_per_s=B * live / (wall - ttft),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log(f"  TTFT {res['ttft_ms']:.1f} ms, {res['decode_tok_per_s']:.1f} tok/s over {live} "
+        f"steps, wall {wall:.2f} s, peak memory {res['max_memory_allocated_gb']:.2f} GB")
+    return res
+
+
+def run_k8_on_slab(engine: ServingEngine) -> dict:
+    """K8 through its own entry point: the slab engine's cache laid out in
+    pages of 128 through a shuffled page table, layer by layer; one
+    paged_attention call a layer on random bf16 queries, against K1 over the
+    contiguous cache (the slab decode step's attention) at the cache's
+    lengths. The cache holds the model's K/V, not unit normals, so the
+    outputs are not of order 1: the bf16 bound is taken relative to the
+    largest output magnitude, where both kernels round their outputs to
+    bf16 (one ulp in [2, 4) is 1.6e-2)."""
+    st = engine.state
+    L, B, Hkv, max_len, D = st["k"].shape
+    H, P = engine.model.config.llm.num_heads, 128
+    pm = max_len // P
+    lengths = st["length"].clone()
+    table = torch.from_numpy(np.random.default_rng(13).permutation(np.arange(1, 1 + B * pm))
+                             .reshape(B, pm).astype(np.int32)).cuda()
+    kv_mask = torch.arange(max_len, device="cuda")[None, :] < lengths[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    reset_launch_counts(("paged_attention",))
+    err, scale = 0.0, 1.0
+    for layer in range(L):
+        pools = []
+        for name in ("k", "v"):
+            pool = torch.zeros((Hkv, 1 + B * pm, P, D), dtype=st[name].dtype, device="cuda")
+            pool[:, table.flatten().long()] = (st[name][layer].reshape(B, Hkv, pm, P, D)
+                                               .transpose(0, 1).reshape(Hkv, B * pm, P, D))
+            pools.append(pool)
+        q = torch.randn(B, H, D, generator=gen, device="cuda", dtype=st["k"].dtype)
+        got = paged.paged_attention(q, *pools, table, lengths)
+        want = fl.flash_attention(q[:, :, None].contiguous(), st["k"][layer], st["v"][layer],
+                                  kv_mask=kv_mask, causal=False)[:, :, 0]
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K8: non-finite output at layer {layer}")
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        scale = max(scale, want.float().abs().max().item())
+    launches = paged.launches["paged_attention"]
+    log(f"  K8 over the slab cache (lengths {lengths.tolist()}): {launches} launches, "
+        f"max_abs_err against K1 {err:.3e}, max |output| {scale:.3f} "
+        f"(tol {TOL[torch.bfloat16]:g} x max(1, max |output|))")
+    if launches != L:
+        raise AssertionError(f"K8 launched {launches} times, not once a layer ({L})")
+    if not err <= TOL[torch.bfloat16] * scale:
+        raise AssertionError(f"K8 disagrees with K1 over the slab cache: {err}")
+    return dict(launches=launches, max_abs_err_vs_k1=err, max_abs_output=scale,
+                lengths=lengths.tolist())
+
+
+def run_slab_full_width(model: MultimodalModel) -> dict:
+    """Phase 13: slab serving, K8 over its cache, slab speculative serving and
+    generate(), at full width."""
+    rng = np.random.default_rng(13)
+    serving, engine = run_slab_serving(model, rng)
+    k8 = run_k8_on_slab(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = run_slab_spec(model, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = run_generate(model, rng)
+    return dict(serving=serving, k8_entry_point=k8, spec=spec, generate=gen)
 
 
 # ----------------------------------------------------------------------
@@ -1679,6 +2076,8 @@ def main() -> int:
     results = {}
     for names, check in ((("encoder_attention",), check_encoder_attention),
                          (("ring_decode_attention",), check_ring_decode),
+                         (("paged_attention",), check_paged_attention),
+                         (("flash_attention_fwd_decode",), check_flash_decode),
                          (("ring_verify_attention",), check_ring_verify),
                          (("fold_ring_into_pages",), check_fold),
                          (TRAINING, check_flash)):
@@ -1757,6 +2156,13 @@ def main() -> int:
         "through load_jax_params, 8 x 256 images and phase 5's serving each; (L, 8) with "
         "int8_o=False and fuse_l=False; K7b int8 + K10 + K7f composed")
     others = run_other_calibrations(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[13] full width slab KV mode: phase 5's requests, phase 8's speculative mix, "
+          "generate() on 8 x 512 tokens; K8 over the slab cache")
+    model.modalities["image"].embedder_q = None  # phase 5's bf16 tower
+    slab = run_slab_full_width(model)
 
     # each kernel's launches in the full-width run of its path
     launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
@@ -1771,7 +2177,11 @@ def main() -> int:
                     others["L8_float_out"]["launches"]["qkv_attn_int8_float_out"],
                 "qkv_attn_int8_static": others["L8_no_fuse_l"]["launches"]["qkv_attn_int8_static"],
                 "mlp_fused": others["unwired"]["launches"]["mlp_fused"],
-                "encoder_attention_int8": others["unwired"]["launches"]["encoder_attention_int8"]}
+                "encoder_attention_int8": others["unwired"]["launches"]["encoder_attention_int8"],
+                # phase 13: K8 through its entry point, K1 in slab decode
+                "paged_attention": slab["k8_entry_point"]["launches"],
+                "flash_attention_fwd_decode":
+                    slab["serving"]["launches"]["flash_attention_fwd"]}
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
@@ -1784,6 +2194,7 @@ def main() -> int:
     print(json.dumps({"full_width_int8_tower": {k: v for k, v in full_int8.items()}}))
     print(json.dumps({"full_width_int8_llm": llm_int8, "spec_full_width_int8_llm": spec_int8}))
     print(json.dumps({"other_calibrations": others}))
+    print(json.dumps({"slab_full_width": slab}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,10 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _P),
     "mmt_ring_decode_split_keys": (),
+    # q, k_pages, v_pages, page_table, lengths, partial (float32 scratch), o,
+    # B, H, Hkv, D, n_pages, P, pm, scale, n_splits, dtype, stream
+    "mmt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _P),
     # q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
     # partial (float32 scratch), o, B, H, Hkv, S, D, n_pages, P, pm, T,
     # layer_index, scale, n_splits, dtype, stream

@@ -1,6 +1,7 @@
-// K4: one decode step of paged + ring attention per serving slot.
+// K4: one decode step of paged + ring attention per serving slot, and K8:
+// one decode step of paged attention without a ring.
 //
-// Replaces the Pallas kernel `_ring_decode_kernel` of
+// K4 replaces the Pallas kernel `_ring_decode_kernel` of
 // multimeditron_tpu/ops/paged_attention.py (reached through
 // `ring_decode_attention_pallas`). Slot b's query attends over
 //   - its prompt/folded tokens in the page pool: positions < pages_len[b],
@@ -9,8 +10,15 @@
 //   - its in-chunk ring rows r <= lengths[b] - pages_len[b] of layer
 //     `layer_index` of the ring (L, B, Hkv, T, D) (row lengths-pages_len holds
 //     this step's own token).
+// K8 replaces `_paged_kernel` of the same file (reached through
+// `paged_attention_pallas`): slot b's query attends over positions
+// < lengths[b] of ONE layer's pool (Hkv, n_pages, P, D) through its page
+// table, the step's own token included; a slot of length 0 gets zeros. It is
+// K4 with no ring (the `kRing` template parameter below), so only the first
+// ceil(lengths[b] / P) pages of a slot are read, as the Pallas kernel's
+// clamped page index arranges.
 //
-// What bounds it on the H100: bytes. Each step reads every valid key and
+// What bounds them on the H100: bytes. Each step reads every valid key and
 // value row once (2 * N * D values per slot and kv head) and does 4 * group *
 // N * D FLOPs on them: about `group` FLOPs per byte, far below the ~295 the
 // card needs before compute matters. At Llama-3.1-8B widths (8 slots, 576
@@ -26,17 +34,18 @@
 // shared memory, every thread issuing a batch of 4-byte loads before storing
 // any; each warp scores whole rows from shared memory (lanes split D, a
 // shuffle reduction per head); one warp per head keeps an online softmax in
-// float; each thread accumulates its output columns for every head. The
-// block writes its partial (max, sum, accumulator) to a float32 scratch
-// buffer, and a second kernel (split_merge.cuh), one block per (kv head,
-// slot), merges the splits and normalises. Keys past the valid range are never visited, so
-// stale or uninitialised pool pages cannot poison a row (the Pallas kernel
-// had to zero them because 0 * NaN = NaN). Every page index read from the
-// table is clamped into the pool, and the valid counts are clamped to the
-// table and the ring: inactive slots carry stale tables and lengths, and
-// their output is garbage by contract but never reads out of bounds. A slot
-// with no valid key writes zeros. Copies overlapped with compute (cp.async
-// or TMA) and tensor-core dots are later work.
+// float, in the base-2 domain of the Pallas kernels (sm_scale * log2 e folded
+// into the scale, exp2); each thread accumulates its output columns for every
+// head. The block writes its partial (max, sum, accumulator) to a float32
+// scratch buffer, and a second kernel (split_merge.cuh), one block per (kv
+// head, slot), merges the splits and normalises. Keys past the valid range
+// are never visited, so stale or uninitialised pool pages cannot poison a
+// row (the Pallas kernel had to zero them because 0 * NaN = NaN). Every page
+// index read from the table is clamped into the pool, and the valid counts
+// are clamped to the table and the ring: inactive slots carry stale tables
+// and lengths, and their output is garbage by contract but never reads out
+// of bounds. A slot with no valid key writes zeros. Copies overlapped with
+// compute (cp.async or TMA) and tensor-core dots are later work.
 #include <cstdint>
 
 #include "common.cuh"
@@ -50,6 +59,7 @@ constexpr int kTile = 64;
 constexpr int kMaxGroup = 16;
 constexpr int kCopyBatch = 8;  // loads in flight per thread while staging a tile
 constexpr int kSplitKeys = 2 * kTile;  // keys per split (per block)
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 size_t shared_bytes(int group, int D) {
@@ -60,14 +70,16 @@ size_t shared_bytes(int group, int D) {
          + 3 * size_t(group) * sizeof(float);      // running max, sum, rescale
 }
 
-template <typename T>
+// kRing = false (K8): no ring; `pages_len` is the slot's whole length and the
+// ring pointers are unused.
+template <typename T, bool kRing>
 __global__ void __launch_bounds__(kThreads)
-ring_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                         const T* __restrict__ v_pages, const T* __restrict__ k_ring,
-                         const T* __restrict__ v_ring, const int* __restrict__ page_table,
-                         const int* __restrict__ pages_len, const int* __restrict__ lengths,
-                         float* __restrict__ partial, int B, int H, int Hkv, int D,
-                         int n_pages, int P, int pm, int T_ring, int layer, float scale) {
+paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages, const T* __restrict__ k_ring,
+                          const T* __restrict__ v_ring, const int* __restrict__ page_table,
+                          const int* __restrict__ pages_len, const int* __restrict__ lengths,
+                          float* __restrict__ partial, int B, int H, int Hkv, int D,
+                          int n_pages, int P, int pm, int T_ring, int layer, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const T** kptr = reinterpret_cast<const T**>(smem);
   const T** vptr = kptr + kTile;
@@ -85,7 +97,8 @@ ring_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int warp = threadIdx.x / mmt::kWarpSize, lane = threadIdx.x % mmt::kWarpSize;
   const int n_page_keys = mmt::clamp_int(pages_len[b], 0, pm * P);
   const int n_ring_keys =
-      mmt::clamp_int(static_cast<long long>(lengths[b]) - pages_len[b] + 1, 0, T_ring);
+      kRing ? mmt::clamp_int(static_cast<long long>(lengths[b]) - pages_len[b] + 1, 0, T_ring)
+            : 0;
   const int n_keys = n_page_keys + n_ring_keys;
   const int words = D * static_cast<int>(sizeof(T)) / 4;  // 32-bit words per row
 
@@ -116,7 +129,7 @@ ring_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         row = (page_head0 + page) * P + i % P;
         kptr[threadIdx.x] = k_pages + row * D;
         vptr[threadIdx.x] = v_pages + row * D;
-      } else {
+      } else if (kRing) {
         row = ring_head0 + (i - n_page_keys);
         kptr[threadIdx.x] = k_ring + row * D;
         vptr[threadIdx.x] = v_ring + row * D;
@@ -180,13 +193,13 @@ ring_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       const float m_new = fmaxf(m_s[g], mx);
       float sum = 0.f;
       for (int j = lane; j < nt; j += mmt::kWarpSize) {
-        const float p = expf(sc[g * kTile + j] - m_new);
+        const float p = exp2f(sc[g * kTile + j] - m_new);
         sc[g * kTile + j] = p;
         sum += p;
       }
       sum = mmt::warp_sum(sum);
       if (lane == 0) {
-        const float alpha = expf(m_s[g] - m_new);
+        const float alpha = exp2f(m_s[g] - m_new);
         alpha_s[g] = alpha;
         l_s[g] = l_s[g] * alpha + sum;
         m_s[g] = m_new;
@@ -221,28 +234,34 @@ ring_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename T, bool kRing>
 int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_ring,
            const void* v_ring, const void* page_table, const void* pages_len,
            const void* lengths, void* partial, void* o, int B, int H, int Hkv, int D,
            int n_pages, int P, int pm, int T_ring, int layer, float scale, int n_splits,
            cudaStream_t stream) {
   const size_t smem = shared_bytes<T>(H / Hkv, D);
-  cudaError_t err = cudaFuncSetAttribute(ring_decode_split_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(paged_decode_split_kernel<T, kRing>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ring_decode_split_kernel<T><<<dim3(Hkv, B, n_splits), kThreads, smem, stream>>>(
+  paged_decode_split_kernel<T, kRing><<<dim3(Hkv, B, n_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const T*>(k_ring),
       static_cast<const T*>(v_ring), static_cast<const int*>(page_table),
       static_cast<const int*>(pages_len), static_cast<const int*>(lengths),
-      static_cast<float*>(partial), B, H, Hkv, D, n_pages, P, pm, T_ring, layer, scale);
+      static_cast<float*>(partial), B, H, Hkv, D, n_pages, P, pm, T_ring, layer,
+      scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mmt::split_merge_kernel<T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
+  mmt::split_merge_kernel<T, true><<<dim3(Hkv, B), kThreads, 0, stream>>>(
       static_cast<const float*>(partial), static_cast<T*>(o), Hkv, H / Hkv, D, n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int H, int Hkv, int D, int pm, int P, int T_ring, int n_splits) {
+  return Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup || D % 2 != 0 ||
+         static_cast<long long>(n_splits) * kSplitKeys < static_cast<long long>(pm) * P + T_ring;
 }
 
 }  // namespace
@@ -256,15 +275,26 @@ extern "C" int mmt_ring_decode_attention(const void* q, const void* k_pages,
                                          void* partial, void* o, int B, int H, int Hkv, int D,
                                          int n_pages, int P, int pm, int T_ring, int layer,
                                          float scale, int n_splits, int dtype, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup || D % 2 != 0 ||
-      static_cast<long long>(n_splits) * kSplitKeys < static_cast<long long>(pm) * P + T_ring)
-    return static_cast<int>(cudaErrorInvalidValue);
-  MMT_DISPATCH_DTYPE(dtype, return launch<scalar_t>(q, k_pages, v_pages, k_ring, v_ring,
-                                                     page_table, pages_len, lengths, partial,
-                                                     o, B, H, Hkv, D, n_pages, P, pm, T_ring,
-                                                     layer, scale, n_splits,
-                                                     static_cast<cudaStream_t>(stream)));
+  if (bad_shape(H, Hkv, D, pm, P, T_ring, n_splits)) return static_cast<int>(cudaErrorInvalidValue);
+  MMT_DISPATCH_DTYPE(dtype, return launch<scalar_t, true>(
+                                q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len,
+                                lengths, partial, o, B, H, Hkv, D, n_pages, P, pm, T_ring,
+                                layer, scale, n_splits, static_cast<cudaStream_t>(stream)));
 }
 
-// Keys per split of mmt_ring_decode_attention (sizes its scratch buffer).
+// K8 on one layer's pool (Hkv, n_pages, P, D); `partial` as above, with
+// n_splits * 128 covering pages_max * P keys.
+extern "C" int mmt_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                   const void* page_table, const void* lengths, void* partial,
+                                   void* o, int B, int H, int Hkv, int D, int n_pages, int P,
+                                   int pm, float scale, int n_splits, int dtype, void* stream) {
+  if (bad_shape(H, Hkv, D, pm, P, 0, n_splits)) return static_cast<int>(cudaErrorInvalidValue);
+  MMT_DISPATCH_DTYPE(dtype, return launch<scalar_t, false>(
+                                q, k_pages, v_pages, nullptr, nullptr, page_table, lengths,
+                                lengths, partial, o, B, H, Hkv, D, n_pages, P, pm, 0, 0, scale,
+                                n_splits, static_cast<cudaStream_t>(stream)));
+}
+
+// Keys per split of mmt_ring_decode_attention and mmt_paged_attention (sizes
+// their scratch buffers).
 extern "C" int mmt_ring_decode_split_keys() { return kSplitKeys; }

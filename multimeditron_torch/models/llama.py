@@ -2,10 +2,12 @@
 
 Counterpart of ``multimeditron_tpu/models/llama.py`` for the serving and
 training paths: the decoder without a cache (optionally rematerialised per
-layer for training), with a contiguous cache in prefill mode (the
-serving engine's local prefill cache and chunked-prefill slab), and the paged
-steps against a page pool + per-chunk ring: a single-token decode step
-(kernel K4) and the speculative verify block of S > 1 tokens (kernel K6).
+layer for training); with a contiguous cache (L, B, Hkv, max_len, Dh), a
+prefill (causal at per-sample offsets: the serving engine's local prefill
+cache, chunked prefill and the slab engine's verify block) or a decode step
+(``generate``, the slab engine; kernel K1 on the card); and the paged steps
+against a page pool + per-chunk ring: a single-token decode step (kernel K4)
+and the speculative verify block of S > 1 tokens (kernel K6).
 Supports GQA, RoPE with HF llama3 scaling and 2-D position ids, optional
 QK-norm, gated and plain MLPs (activation in float32) and tied embeddings.
 
@@ -17,7 +19,7 @@ activation once per row and feeds every int8 projection that reads it when
 a call has at least that many (padded) rows.
 
 Not ported yet, and refused with ``NotImplementedError``: sequence, ring and
-pipeline parallelism and contiguous-cache decode.
+pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -160,6 +162,25 @@ def init_paged_kv_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
     }
 
 
+def _write_at_lengths(cache: torch.Tensor, x: torch.Tensor, lengths: torch.Tensor) -> None:
+    """Write ``x`` (B, Hkv, S, Dh) into one layer's cache (B, Hkv, max_len,
+    Dh) at rows lengths[b] + j, in place. Rows at or past ``max_len`` are
+    dropped, as JAX's out-of-range scatter drops them (an inactive slot at
+    capacity still runs the step; a verify block or a chunk can reach past
+    the end). Without a host sync: such a row is written to position
+    (lengths[b] + j) % max_len with the value already there. Those positions
+    lie below lengths[b], clear of this call's kept rows, and are distinct
+    while S <= max_len; a row j >= max_len is past the end for any length
+    and is cut off first."""
+    B, _, max_len, _ = cache.shape
+    S = min(x.shape[2], max_len)
+    pos = lengths[:, None].long() + torch.arange(S, device=x.device)[None, :]
+    idx, keep = pos % max_len, (pos < max_len)[:, :, None, None]
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    rows = x[:, :, :S].transpose(1, 2).to(cache.dtype)  # (B, S, Hkv, Dh)
+    cache[b_idx, :, idx] = torch.where(keep, rows, cache[b_idx, :, idx])
+
+
 # ----------------------------------------------------------------------
 # Modules
 # ----------------------------------------------------------------------
@@ -249,21 +270,21 @@ class LlamaLayer(nn.Module):
             return ring_decode_attention(q[:, :, 0, :].contiguous(), *args)[:, :, None, :]
         return ring_verify_attention(q.contiguous(), *args)
 
-    def _prefill_into_cache(self, q, k, v, cache: Cache, layer_index: int) -> torch.Tensor:
+    def _contiguous_step(self, q, k, v, cache: Cache, layer_index: int,
+                         prefill: bool) -> torch.Tensor:
         # Write this call's K/V at each sample's current length, then attend
-        # causally over the whole (masked) cache with the per-sample length
-        # as causal offset.
+        # over the whole (masked) cache: a prefill causally with the
+        # per-sample length as offset (plain attention, as in the JAX
+        # package); a decode step (S = 1, or a multi-token step) without
+        # causal masking, which on the card is kernel K1.
         ck, cv = cache["k"][layer_index], cache["v"][layer_index]
-        B, _, S, _ = k.shape
-        max_len = ck.shape[2]
-        lengths = cache["length"]
-        pos = lengths[:, None].long() + torch.arange(S, device=k.device)[None, :]
-        b_idx = torch.arange(B, device=k.device)[:, None]
-        ck[b_idx, :, pos] = k.transpose(1, 2).to(ck.dtype)
-        cv[b_idx, :, pos] = v.transpose(1, 2).to(cv.dtype)
-        kv_mask = (torch.arange(max_len, device=k.device)[None, :]
-                   < (lengths + S)[:, None])
-        return attention(q, ck, cv, kv_mask=kv_mask, causal=True, causal_offset=lengths)
+        lengths, S, max_len = cache["length"], q.shape[2], ck.shape[2]
+        _write_at_lengths(ck, k, lengths)
+        _write_at_lengths(cv, v, lengths)
+        kv_mask = torch.arange(max_len, device=q.device)[None, :] < (lengths + S)[:, None]
+        if prefill:
+            return attention(q, ck, cv, kv_mask=kv_mask, causal=True, causal_offset=lengths)
+        return attention(q, ck, cv, kv_mask=kv_mask, causal=False)
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
                 attention_mask: torch.Tensor, inv_freq: torch.Tensor,
@@ -296,12 +317,8 @@ class LlamaLayer(nn.Module):
             out = attention(q, k, v, kv_mask=attention_mask, causal=True)
         elif "page_table" in cache:
             out = self._paged_step(q, k, v, cache, layer_index)
-        elif prefill:
-            out = self._prefill_into_cache(q, k, v, cache, layer_index)
         else:
-            raise NotImplementedError(
-                "decode against a contiguous cache (generation.py, slab mode) "
-                "is not ported yet")
+            out = self._contiguous_step(q, k, v, cache, layer_index, prefill)
         out = out.transpose(1, 2).reshape(B, S, H * Dh)
         x = x + _proj(self.o_proj, out, _maybe_quantize_act(out, self.o_proj, gate))
 
@@ -383,7 +400,8 @@ class Llama(nn.Module):
 
         The cache tensors are updated IN PLACE; the returned cache dict holds
         them with ``length`` advanced by the call's sequence length. A cache
-        carrying a ``page_table`` runs the paged decode step.
+        carrying a ``page_table`` runs the paged decode step; a contiguous
+        cache runs a prefill with ``prefill=True`` and a decode step without.
 
         ``return_hidden=True`` returns (final-normed hidden states, cache)
         instead of logits: XLA drops the JAX version's unused logits, eager

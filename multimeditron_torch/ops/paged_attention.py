@@ -1,8 +1,11 @@
-"""Paged + ring decode and verify attention and the ring fold (kernels K4,
-K6 and K5).
+"""Paged decode attention (kernel K8), paged + ring decode and verify
+attention and the ring fold (kernels K4, K6 and K5).
 
-Counterpart of ``multimeditron_tpu/ops/paged_attention.py``. The serving
-engine splits the decode KV cache in two:
+Counterpart of ``multimeditron_tpu/ops/paged_attention.py``.
+``paged_attention`` is one decode step's attention straight against one
+layer's page pool ``(Hkv, n_pages, P, D)`` through each slot's page table,
+``lengths`` counting the step's own token; nothing in the serving engine
+calls it. The serving engine splits the decode KV cache in two:
 
 - PAGES ``(L, Hkv, n_pages, P, D)`` hold the tokens that existed when the
   current decode chunk started (prompt + earlier chunks), read through each
@@ -15,9 +18,9 @@ engine splits the decode KV cache in two:
 per slot; ``ring_verify_attention`` does the same for a speculative block
 of S query rows, causal within the block; ``fold_ring_into_pages`` moves the
 ring rows into the pages, in place, at the end of a chunk (after every
-verify step). On a CUDA tensor each runs its kernel (``csrc/ring_decode.cu``,
-``csrc/ring_verify.cu``, ``csrc/fold_ring.cu``); on a CPU tensor its plain
-twin (``*_plain``, the JAX ``*_xla`` references).
+verify step). On a CUDA tensor each runs its kernel (``csrc/ring_decode.cu``
+for K8 and K4, ``csrc/ring_verify.cu``, ``csrc/fold_ring.cu``); on a CPU
+tensor its plain twin (``*_plain``, the JAX ``*_xla`` references).
 """
 
 from __future__ import annotations
@@ -29,11 +32,94 @@ import torch
 from multimeditron_torch import _build
 
 # Launches of the CUDA kernels (the plain twins do not count).
-launches = {"ring_decode_attention": 0, "ring_verify_attention": 0,
-            "fold_ring_into_pages": 0}
+launches = {"paged_attention": 0, "ring_decode_attention": 0,
+            "ring_verify_attention": 0, "fold_ring_into_pages": 0}
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+# ======================================================================
+# K8: paged decode attention (no ring)
+# ======================================================================
+def paged_attention_plain(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    page_table: torch.Tensor, lengths: torch.Tensor, sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather-based twin (the JAX ``paged_attention_xla``): float32 scores,
+    p rounded to v's dtype before PV, zeros for a slot of length 0."""
+    B, H, D = q.shape
+    Hkv, _, P, _ = k_pages.shape
+    pm = page_table.shape[1]
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    table = page_table.long()
+    # (Hkv, B, pm, P, D) -> (B, Hkv, pm*P, D)
+    k = k_pages[:, table].transpose(0, 1).reshape(B, Hkv, pm * P, D)
+    v = v_pages[:, table].transpose(0, 1).reshape(B, Hkv, pm * P, D)
+    mask = (torch.arange(pm * P, device=q.device)[None, :] < lengths[:, None])[:, None, None]
+
+    qg = q.reshape(B, Hkv, H // Hkv, D).float()
+    s = torch.matmul(qg, k.float().transpose(-1, -2)) * sm_scale  # (B, Hkv, group, N)
+    s = torch.where(mask, s, MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / torch.clamp(l, min=1e-30)
+    out = torch.where(l > 0, out, 0.0)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    page_table: torch.Tensor, lengths: torch.Tensor, sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One decode query per slot over the first ``lengths[b]`` positions of
+    its pages (the step's own token included) in one layer's pool.
+    q: (B, H, D), pools (Hkv, n_pages, P, D), page_table (B, pages_max),
+    lengths (B,) -> (B, H, D); a slot of length 0 returns zeros."""
+    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"q (B, H, D) and pools (Hkv, n_pages, P, D) expected, got "
+                         f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    B, H, D = q.shape
+    Hkv, n_pages, P, Dk = k_pages.shape
+    if Dk != D or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} and pool {tuple(k_pages.shape)} disagree "
+                         f"(head dim, or H % Hkv != 0)")
+    if page_table.dim() != 2 or page_table.shape[0] != B or lengths.shape != (B,):
+        raise ValueError("page_table must be (B, pages_max) and lengths (B,)")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype) or q.dtype not in _DTYPES:
+        raise ValueError(f"q and pools must share a dtype in {_DTYPES}")
+    if any(t.device != q.device for t in (k_pages, v_pages, page_table, lengths)):
+        raise ValueError("q, pools and tables must lie on one device")
+    pm = page_table.shape[1]
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table, lengths, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+    if H // Hkv > 16 or D % 2:
+        raise ValueError(f"the kernel takes an even head dim and at most 16 query "
+                         f"heads per kv head, got D={D}, {H // Hkv} heads")
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages)):
+        raise ValueError("q and pools must be contiguous")
+    _check_cuda_ints(page_table, lengths)
+
+    lib = _build.library()
+    # splits of each slot's keys, merged through float32 scratch as in K4
+    n_splits = -(-(pm * P) // lib.mmt_ring_decode_split_keys())
+    partial = torch.empty((B, Hkv, n_splits, H // Hkv, D + 2), dtype=torch.float32,
+                          device=q.device)
+    o = torch.empty_like(q)
+    code = lib.mmt_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), partial.data_ptr(), o.data_ptr(), B, H, Hkv, D, n_pages, P, pm,
+        float(sm_scale), n_splits, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+    _build.check("paged_attention", code)
+    launches["paged_attention"] += 1
+    return o
 
 
 # ======================================================================
@@ -102,7 +188,7 @@ def _check_pool(k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths
 
 def _check_cuda_ints(*ints):
     if any(t.dtype != torch.int32 or not t.is_contiguous() for t in ints):
-        raise ValueError("page_table, pages_len and lengths must be contiguous int32")
+        raise ValueError("page tables and lengths must be contiguous int32")
 
 
 def ring_decode_attention(

@@ -1,6 +1,7 @@
-"""Continuous-batching serving engine, paged KV mode.
+"""Continuous-batching serving engine, paged and slab KV modes.
 
-Counterpart of ``multimeditron_tpu/serve/engine.py`` with ``kv_mode="paged"``:
+Counterpart of ``multimeditron_tpu/serve/engine.py``. ``kv_mode="paged"``
+(the default):
 
 - a fixed pool of SLOTS and a global pool of KV PAGES, with per-slot page
   tables; page 0 is the trash page. Requests reserve pages for prompt +
@@ -36,14 +37,24 @@ Counterpart of ``multimeditron_tpu/serve/engine.py`` with ``kv_mode="paged"``:
   chunked prompt) runs W8A8 once its padded rows reach 256, while decode
   and verify stay W8A16.
 
+``kv_mode="slab"`` keeps one contiguous cache row per slot, (L, slots, Hkv,
+max_seq_len, Dh), and follows the JAX engine's non-paged branches: a prefill
+copies each request's local cache into its slot's row; a decode step writes
+at each slot's length and attends over the masked row (kernel K1 on the
+card), with no ring and no fold; a verify block runs as a prefill at
+per-slot causal offsets (plain attention); a long prompt prefills chunk by
+chunk straight into its slot's row; admission needs only a free slot, and
+``submit_group`` queues n independent requests. Sampling, speculative
+decoding and the int8 LLM work as in paged mode.
+
 Scheduling state lives on the engine's device (the model's device); the host
 keeps mirrors for admission, page allocation and finish bookkeeping, and
 downloads one token matrix per chunk. Each live decode or verify step costs
 one host sync (``active.any()``), where the JAX loop skips dead steps
 in-graph.
 
-Not ported yet (``NotImplementedError``): ``kv_mode="slab"``, tensor
-parallelism or an external mesh, and ``attn_impl``.
+Not ported yet (``NotImplementedError``): tensor parallelism or an
+external mesh, and ``attn_impl``.
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from multimeditron_torch.models.multimodal import MultimodalModel
 from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
 from multimeditron_torch.serve import prng
 
-CACHE_KEYS = ("k", "v", "ring_k", "ring_v", "length", "page_table", "pages_length")
+PAGED_CACHE_KEYS = ("k", "v", "ring_k", "ring_v", "length", "page_table", "pages_length")
+SLAB_CACHE_KEYS = ("k", "v", "length")
 W8A8_MIN_ROWS = 256  # the JAX engine's prefill row gate
 
 
@@ -118,7 +130,6 @@ class Request:
 
 def _refuse_unported(cfg: EngineConfig, mesh) -> None:
     refused = [
-        (cfg.kv_mode != "paged", f"kv_mode={cfg.kv_mode!r} (slab engine)"),
         (cfg.tp > 1 or mesh is not None, "tp > 1 or an external mesh (parallelism)"),
         (cfg.attn_impl is not None, "attn_impl (the port picks kernels by device)"),
     ]
@@ -139,6 +150,10 @@ class ServingEngine:
         _refuse_unported(cfg, mesh)
         if cfg.w8a8_prefill and not cfg.quantize_llm:
             raise ValueError("w8a8_prefill requires quantize_llm")
+        if cfg.kv_mode not in ("paged", "slab"):
+            raise ValueError(f"kv_mode must be paged|slab, got {cfg.kv_mode!r}")
+        self.paged = cfg.kv_mode == "paged"
+        self.cache_keys = PAGED_CACHE_KEYS if self.paged else SLAB_CACHE_KEYS
         self.model = model.eval()
         self.cfg = cfg
         self.device = next(model.parameters()).device
@@ -151,26 +166,28 @@ class ServingEngine:
         self.eos_id = model.config.eos_token_idx
         self.decode_chunk = max(1, cfg.decode_chunk)
         self.spec_k = max(0, cfg.speculative_k)
-        P = cfg.page_size
-        for b in cfg.prefill_buckets:
-            if b >= P and b % P != 0:
-                raise ValueError(f"prefill bucket {b} must divide into pages of {P}")
-        # a verify step writes one (k+1)-token block into the ring, folded
-        # after every step; plain decode keeps a chunk's rows
-        ring_size = max(self.decode_chunk, self.spec_k + 2) if self.spec_k else self.decode_chunk
-        if ring_size > P:
-            raise ValueError(f"ring ({ring_size} rows) must fit one page ({P})")
-        self.page_size = P
-        self.pages_max = -(-cfg.max_seq_len // P)
-        n_pages = cfg.num_pages or (1 + cfg.max_slots * self.pages_max)
-        self.num_pages = n_pages
+        if self.paged:
+            P = cfg.page_size
+            for b in cfg.prefill_buckets:
+                if b >= P and b % P != 0:
+                    raise ValueError(f"prefill bucket {b} must divide into pages of {P}")
+            # a verify step writes one (k+1)-token block into the ring, folded
+            # after every step; plain decode keeps a chunk's rows
+            ring_size = (max(self.decode_chunk, self.spec_k + 2) if self.spec_k
+                         else self.decode_chunk)
+            if ring_size > P:
+                raise ValueError(f"ring ({ring_size} rows) must fit one page ({P})")
+            self.page_size = P
+            self.pages_max = -(-cfg.max_seq_len // P)
+            n_pages = cfg.num_pages or (1 + cfg.max_slots * self.pages_max)
+            self.num_pages = n_pages
 
-        # Host-side allocator; page 0 = trash (never allocated). Pages are
-        # refcounted: a forked group's slots share its full prompt pages.
-        self.page_table = np.zeros((cfg.max_slots, self.pages_max), np.int32)
-        self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
-        self.page_ref = np.zeros((n_pages,), np.int32)
-        self.slot_num_pages = np.zeros((cfg.max_slots,), np.int32)
+            # Host-side allocator; page 0 = trash (never allocated). Pages are
+            # refcounted: a forked group's slots share its full prompt pages.
+            self.page_table = np.zeros((cfg.max_slots, self.pages_max), np.int32)
+            self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
+            self.page_ref = np.zeros((n_pages,), np.int32)
+            self.slot_num_pages = np.zeros((cfg.max_slots,), np.int32)
         # Host mirrors of the scheduling state, advanced from the downloaded
         # tokens alone.
         self.lengths = np.zeros((cfg.max_slots,), np.int32)
@@ -181,8 +198,11 @@ class ServingEngine:
 
         dev, B = self.device, cfg.max_slots
         with torch.inference_mode():
-            cache = init_paged_kv_cache(llm, n_pages, P, self.pages_max, B,
-                                        ring_size=ring_size, device=dev)
+            if self.paged:
+                cache = init_paged_kv_cache(llm, n_pages, P, self.pages_max, B,
+                                            ring_size=ring_size, device=dev)
+            else:
+                cache = init_kv_cache(llm, B, cfg.max_seq_len, device=dev)
             ints = dict(dtype=torch.int32, device=dev)
             # Device-resident scheduling state, updated in place by prefill
             # and decode; "remaining" is the token budget left per slot.
@@ -340,8 +360,9 @@ class ServingEngine:
         st["remaining"][slot_ids] = budgets - 1
         st["temps"][slot_ids] = temps
         st["top_ps"][slot_ids] = top_ps
-        st["pages_length"][slot_ids] = lengths
-        st["page_table"][slot_ids] = page_rows
+        if self.paged:
+            st["pages_length"][slot_ids] = lengths
+            st["page_table"][slot_ids] = page_rows
         if "history" in st:
             hist = st["history"]
             width = min(history_rows.shape[1], hist.shape[1])
@@ -351,11 +372,13 @@ class ServingEngine:
     def _prefill(self, bucket: int, input_ids, attention_mask, mm_inputs, dest,
                  slot_ids, page_rows, temps, top_ps, budgets, seed: int):
         """Encode + splice + causal prefill of n requests into a local cache,
-        then scatter the written pages into the pool and set the admitted
-        slots' scheduling rows. Returns (lengths, first_tokens, last_logits);
-        forks sample from the last logits without re-running the prompt."""
+        then copy it into the engine's cache (paged: one scatter of the
+        written pages into the pool at page ids ``dest``; slab: each
+        request's row into its slot) and set the admitted slots' scheduling
+        rows. Returns (lengths, first_tokens, last_logits); forks sample from
+        the last logits without re-running the prompt."""
         llm_cfg = self.model.config.llm
-        st, n, P = self.state, input_ids.shape[0], self.page_size
+        st, n = self.state, input_ids.shape[0]
         embeds = self.model.embed(input_ids, mm_inputs)
         local = init_kv_cache(llm_cfg, n, bucket, dtype=st["k"].dtype, device=self.device)
         hidden, local = self.llm(inputs_embeds=embeds, attention_mask=attention_mask,
@@ -364,6 +387,13 @@ class ServingEngine:
         lengths = attention_mask.sum(dim=-1).to(torch.int32)
         L, _, Hkv, _, Dh = local["k"].shape
         for name in ("k", "v"):
+            if not self.paged:
+                # a bucket can be wider than the slot's row: its prefix is
+                # copied (the prompt itself is shorter than max_seq_len)
+                width = min(bucket, st[name].shape[3])
+                st[name][:, slot_ids, :, :width] = local[name][:, :, :, :width]
+                continue
+            P = self.page_size
             if bucket >= P:
                 bp = bucket // P
                 pages = (local[name].reshape(L, n, Hkv, bp, P, Dh)
@@ -414,18 +444,21 @@ class ServingEngine:
 
     def _prefill_chunked(self, req: Request, slot: int, reserve: bool = True) -> None:
         """Prefill a prompt longer than the largest bucket in bucket-sized
-        causal chunks at offsets ``start`` into the slab, then fold the slab
-        into the slot's pages with one scatter."""
+        causal chunks at offsets ``start``: paged, into the persistent slab,
+        then fold the slab into the slot's pages with one scatter; slab,
+        straight into the slot's own row of the cache."""
         ids = np.asarray(req.batch["input_ids"])[0]
         plen = int(np.asarray(req.batch["attention_mask"]).sum())
         ids = ids[:plen]
         W = self.cfg.prefill_buckets[-1]
         mm = req.batch.get("mm_inputs") or {}
-        if reserve:
-            self._reserve_pages(req, slot)
+        if self.paged:
+            if reserve:
+                self._reserve_pages(req, slot)
+            slab = self._get_chunk_slab()
+        else:
+            slab = {name: self.state[name][:, slot:slot + 1] for name in ("k", "v")}
         dev, llm = self.device, self.llm
-        slab = self._get_chunk_slab()
-        cap = slab["k"].shape[3]
         temps = torch.tensor([req.temperature], dtype=torch.float32, device=dev)
         top_ps = torch.tensor([req.top_p], dtype=torch.float32, device=dev)
         start = 0
@@ -433,12 +466,11 @@ class ServingEngine:
             while start < plen:
                 c = min(W, plen - start)
                 bucket = next(b for b in self.cfg.prefill_buckets if c <= b)
-                # a chunk's padding past the slab's end is dropped, as JAX's
-                # out-of-range cache writes are
-                width = min(bucket, cap - start)
-                chunk_ids = np.zeros((1, width), np.int64)
+                # a chunk's padding past the slab's end is dropped by the
+                # cache write, as JAX's out-of-range writes are
+                chunk_ids = np.zeros((1, bucket), np.int64)
                 chunk_ids[0, :c] = ids[start: start + c]
-                chunk_mask = np.zeros((1, width), np.int32)
+                chunk_mask = np.zeros((1, bucket), np.int32)
                 chunk_mask[0, :c] = 1
                 seed = self._next_seed()
                 embeds = self.model.embed(torch.from_numpy(chunk_ids).to(dev),
@@ -454,17 +486,19 @@ class ServingEngine:
                 self.n_prefill_calls += 1
                 start += c
             self._last_prefill_logits = last_logits
-            # fold the prompt's KV into the page pool once
-            L, _, Hkv, _, Dh = slab["k"].shape
-            dest = torch.from_numpy(self.page_table[slot].astype(np.int64)).to(dev)
-            for name in ("k", "v"):
-                self.state[name].index_copy_(
-                    2, dest, slab[name][:, 0].reshape(L, Hkv, self.pages_max, self.page_size, Dh))
+            page_row = None
+            if self.paged:
+                # fold the prompt's KV into the page pool once
+                L, _, Hkv, _, Dh = slab["k"].shape
+                dest = torch.from_numpy(self.page_table[slot].astype(np.int64)).to(dev)
+                for name in ("k", "v"):
+                    self.state[name].index_copy_(2, dest, slab[name][:, 0].reshape(
+                        L, Hkv, self.pages_max, self.page_size, Dh))
+                page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
             self._set_slots(
                 torch.tensor([slot], device=dev), torch.tensor([plen], dtype=torch.int32, device=dev),
                 first, torch.tensor([req.max_new_tokens], dtype=torch.int32, device=dev),
-                temps, top_ps, torch.from_numpy(self.page_table[slot:slot + 1]).to(dev),
-                torch.from_numpy(ids[None].astype(np.int32)).to(dev))
+                temps, top_ps, page_row, torch.from_numpy(ids[None].astype(np.int32)).to(dev))
             first = int(first.cpu()[0])
         self._admit_on_host(req, slot, plen, first, time.time())
 
@@ -553,12 +587,12 @@ class ServingEngine:
     # Decode
     # ------------------------------------------------------------------
     def _decode_chunk(self, chunk: int) -> torch.Tensor:
-        """``chunk`` single-token steps over the slot pool, then the ring
-        fold. EOS, budget and capacity deactivate slots on the device.
+        """``chunk`` single-token steps over the slot pool, then (paged) the
+        ring fold. EOS, budget and capacity deactivate slots on the device.
         Returns the (chunk, slots) token matrix."""
         st, eos, max_len = self.state, self.eos_id, self.cfg.max_seq_len
         llm = self.llm
-        cache = {k: st[k] for k in CACHE_KEYS}
+        cache = {k: st[k] for k in self.cache_keys}
         tokens, active, remaining = st["tokens"], st["active"], st["remaining"]
         # the JAX chunk splits its key once per step, dead steps included
         key = prng.prng_key(st["seed"])
@@ -580,14 +614,15 @@ class ServingEngine:
             active = active & (nxt != eos) & (remaining > 0) & (cache["length"] < max_len)
             tokens = nxt
             rows.append(tokens)
-        # absorb the chunk's ring rows into the page pool; rows past a slot's
-        # final length are not written
-        fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
-                             st["page_table"], st["pages_length"], chunk, cache["length"])
+        if self.paged:
+            # absorb the chunk's ring rows into the page pool; rows past a
+            # slot's final length are not written
+            fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
+                                 st["page_table"], st["pages_length"], chunk, cache["length"])
+            st["pages_length"].copy_(cache["length"])
         self.n_decode_chunks += 1
         toks = torch.stack(rows)  # before st["tokens"], which rows may hold, changes
         st["length"].copy_(cache["length"])
-        st["pages_length"].copy_(cache["length"])
         st["tokens"].copy_(tokens)
         st["active"].copy_(active)
         st["remaining"].copy_(remaining)
@@ -627,7 +662,8 @@ class ServingEngine:
         B, Lh = history.shape
         length = cache["length"]
         block = torch.cat([tokens[:, None], self._draft(history, length, tokens)], dim=1)
-        logits, new_cache = llm(inputs_embeds=llm.embed(block), kv_cache=cache)
+        # a slab cache runs the block as a prefill: causal at per-slot offsets
+        logits, new_cache = llm(inputs_embeds=llm.embed(block), kv_cache=cache, prefill=True)
         logits = logits.float()                                  # (B, k+1, V)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         idx = torch.arange(k + 1, device=self.device)[None, :]
@@ -665,20 +701,22 @@ class ServingEngine:
         pos = torch.where(emit, length[:, None].long() + 1 + idx, Lh)
         hist = torch.cat([history, history.new_zeros((B, 1))], dim=1)
         history = hist.scatter_(1, pos, g)[:, :Lh]
-        # fold every verify step: accepted rows land in their pages, rejected
-        # rows (past the new length) are not written, and the next block
-        # starts at ring row 0 again
-        fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"], st["page_table"],
-                             new_cache["pages_length"], st["ring_k"].shape[3], new_length)
+        if self.paged:
+            # fold every verify step: accepted rows land in their pages,
+            # rejected rows (past the new length) are not written, and the
+            # next block starts at ring row 0 again
+            fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
+                                 st["page_table"], new_cache["pages_length"],
+                                 st["ring_k"].shape[3], new_length)
+            cache["pages_length"] = new_length
         cache["length"] = new_length
-        cache["pages_length"] = new_length
         return history, tokens, active, remaining, g, emit
 
     def _spec_chunk(self, n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """``n_steps`` verify steps; returns the (n_steps, slots, k+1) token
         matrix and emission mask."""
         st = self.state
-        cache = {k: st[k] for k in CACHE_KEYS}
+        cache = {k: st[k] for k in self.cache_keys}
         history, tokens = st["history"], st["tokens"]
         active, remaining = st["active"], st["remaining"]
         B, k = tokens.shape[0], self.spec_k
@@ -693,7 +731,8 @@ class ServingEngine:
             gs.append(g)
             emits.append(emit)
         st["length"].copy_(cache["length"])
-        st["pages_length"].copy_(cache["pages_length"])
+        if self.paged:
+            st["pages_length"].copy_(cache["pages_length"])
         st["history"].copy_(history)
         st["tokens"].copy_(tokens)
         st["active"].copy_(active)
@@ -722,7 +761,7 @@ class ServingEngine:
             top_p=self.cfg.top_p if top_p is None else top_p,
             submit_time=time.time(),
         )
-        if self._required_pages(req) > self.num_pages - 1:
+        if self.paged and self._required_pages(req) > self.num_pages - 1:
             raise ValueError(
                 f"request needs {self._required_pages(req)} KV pages but the "
                 f"pool only has {self.num_pages - 1}; raise num_pages or "
@@ -734,15 +773,15 @@ class ServingEngine:
     def submit_group(self, batch: Dict[str, Any], n: int, max_new_tokens: Optional[int] = None,
                      temperature: Optional[float] = None,
                      top_p: Optional[float] = None) -> List[Request]:
-        """Queue ``n`` requests over one prompt. The prompt prefills once and
-        the n - 1 siblings fork its KV: they share its full pages by
+        """Queue ``n`` requests over one prompt. Paged: the prompt prefills
+        once and the n - 1 siblings fork its KV: they share its full pages by
         refcount, each owning its decode pages and a copy of the partial
-        tail page."""
+        tail page. Slab: n independent submissions."""
         if n < 1:
             raise ValueError("submit_group needs n >= 1")
         kw = dict(max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p)
-        if n == 1:
-            return [self.submit(batch, **kw)]
+        if not self.paged or n == 1:
+            return [self.submit(batch, **kw) for _ in range(n)]
         if n > self.cfg.max_slots:
             raise ValueError(
                 f"group of {n} exceeds max_slots={self.cfg.max_slots}; "
@@ -808,7 +847,7 @@ class ServingEngine:
                 if not self._try_admit_group(head, free):
                     break
                 continue
-            if self._required_pages(head) > len(self.free_pages):
+            if self.paged and self._required_pages(head) > len(self.free_pages):
                 break  # pool exhausted: wait for pages, don't starve the head
             if self._bucket_for(head.batch["input_ids"].shape[1]) is None:
                 self.queue.remove(head)
@@ -822,16 +861,18 @@ class ServingEngine:
             # engine does (there to bound its compiled variants), so both
             # engines batch alike
             group = group[:cap] if cap else group[: 1 << (len(group).bit_length() - 1)]
-            budget, fits = len(self.free_pages), 0
-            for r in group:
-                need = self._required_pages(r)
-                if need > budget:
+            if self.paged:
+                # shrink the group to what the free pool can host
+                budget, fits = len(self.free_pages), 0
+                for r in group:
+                    need = self._required_pages(r)
+                    if need > budget:
+                        break
+                    budget -= need
+                    fits += 1
+                if fits == 0:
                     break
-                budget -= need
-                fits += 1
-            if fits == 0:
-                break
-            group = group[:fits]
+                group = group[:fits]
             for r in group:
                 self.queue.remove(r)
             slots, free = free[: len(group)], free[len(group):]
@@ -863,14 +904,17 @@ class ServingEngine:
                     "batch_idx": torch.from_numpy(batch_idx).to(dev),
                     "token_pos": torch.from_numpy(token_pos).to(dev),
                 }
-        if reserve:
-            for req, slot in zip(group, slots):
-                self._reserve_pages(req, slot)
-        dest = self._bucket_page_ids(slots, bucket).astype(np.int64)
-        page_rows = self.page_table[np.asarray(slots)]
+        if not self.paged:
+            dest = page_rows = None  # each request's row goes to its slot
+        else:
+            if reserve:
+                for req, slot in zip(group, slots):
+                    self._reserve_pages(req, slot)
+            dest = self._bucket_page_ids(slots, bucket).astype(np.int64)
+            page_rows = self.page_table[np.asarray(slots)]
 
         def t(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+            return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
         with torch.inference_mode():
             lengths, first, last_logits = self._prefill(
@@ -888,7 +932,8 @@ class ServingEngine:
             self._admit_on_host(req, slot, int(lengths[j]), int(first[j]), now)
 
     def _finish(self, slot: int, reason: str = "budget") -> None:
-        self._release_pages(slot)
+        if self.paged:
+            self._release_pages(slot)
         req = self.slot_request[slot]
         if req is not None:
             req.done = True

@@ -110,6 +110,73 @@ def test_ring_decode_kernel_skips_poisoned_rows(gen):
     assert torch.equal(got, want)
 
 
+def _k8(gen, dtype, B, H, Hkv, D, P, pm, lengths):
+    """One layer's pool where slot b's lengths[b] tokens live in shuffled
+    pages (page 0, the trash page, unused)."""
+    n_pages = 1 + B * pm
+    ids = np.random.default_rng(2).permutation(np.arange(1, n_pages))
+    table = np.zeros((B, pm), np.int32)
+    for b in range(B):
+        used = -(-lengths[b] // P)
+        table[b, :used] = ids[b * pm: b * pm + used]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    return (randn(B, H, D), randn(Hkv, n_pages, P, D), randn(Hkv, n_pages, P, D),
+            torch.from_numpy(table).cuda(), torch.tensor(lengths, dtype=torch.int32).cuda())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,group,Hkv,D,P,pm", [
+    ([7, 129, 0, 256], 1, 2, 64, 128, 2),       # the JAX test cases
+    ([7, 129, 0, 256], 4, 2, 64, 128, 2),
+    ([1, 1, 1, 1], 1, 2, 64, 128, 2),           # all slots of length 1
+    ([1, 1, 1, 1], 4, 2, 64, 128, 2),
+    ([5, 128, 0, 200], 3, 2, 80, 128, 2),       # D = 80
+    ([66, 3, 250, 0], 2, 2, 64, 64, 4),
+    ([513, 530, 0, 576, 541, 560, 527, 550], 4, 8, 128, 128, 5),  # Llama-3.1-8B serving
+    ([4096, 1, 3000, 0], 4, 2, 128, 128, 32),   # many splits
+    ([20, 9], 16, 1, 32, 16, 2),                # the largest group
+])
+def test_paged_attention_kernel(gen, dtype, lengths, group, Hkv, D, P, pm):
+    args = _k8(gen, dtype, len(lengths), group * Hkv, Hkv, D, P, pm, lengths)
+    before = paged.launches["paged_attention"]
+    got = paged.paged_attention(*args)
+    assert paged.launches["paged_attention"] == before + 1
+    _assert_close(got, paged.paged_attention_plain(*args), dtype)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].any()  # a slot of length 0 is an exact zero row
+
+
+def test_paged_attention_kernel_skips_poisoned_rows(gen):
+    """NaN in pool rows past a slot's length, in its unused table entries'
+    pages and in the trash page never reaches its output."""
+    q, kp, vp, table, lengths = _k8(gen, torch.float32, 3, 4, 2, 64, 16, 3, [5, 16, 33])
+    want = paged.paged_attention(q, kp, vp, table, lengths)
+    kp[:, 0], vp[:, 0] = float("nan"), float("nan")
+    for b, n in enumerate(lengths.tolist()):
+        page = int(table[b, (n - 1) // 16])
+        kp[:, page, (n - 1) % 16 + 1:] = float("nan")
+        vp[:, page, (n - 1) % 16 + 1:] = float("nan")
+    got = paged.paged_attention(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_paged_attention_kernel_refuses_what_it_does_not_take(gen):
+    q, kp, vp, table, lengths = _k8(gen, torch.float32, 2, 4, 2, 63, 16, 2, [3, 20])
+    with pytest.raises(ValueError, match="even head dim"):
+        paged.paged_attention(q, kp, vp, table, lengths)
+    q, kp, vp, table, lengths = _k8(gen, torch.float32, 2, 17, 1, 64, 16, 2, [3, 20])
+    with pytest.raises(ValueError, match="at most 16"):
+        paged.paged_attention(q, kp, vp, table, lengths)
+    q, kp, vp, table, lengths = _k8(gen, torch.float32, 2, 4, 2, 64, 16, 2, [3, 20])
+    with pytest.raises(ValueError, match="int32"):
+        paged.paged_attention(q, kp, vp, table.long(), lengths)
+
+
 def _verify(gen, dtype, B, group, Hkv, S, D, P, pm, pages_len, gen_rows):
     """A verify block of S rows per head over the _paged pool; gen_rows[b] is
     the ring row of slot b's first block row (g = lengths - pages_len)."""
@@ -289,6 +356,25 @@ def test_attention_dispatch_runs_flash_with_autograd(gen):
     attn.attention(q.detach(), k.detach(), v.detach(), causal=True,
                    causal_offset=torch.zeros(B, dtype=torch.int32, device="cuda"))
     assert fl.launches["flash_attention_fwd"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_forward_decode_form(gen, dtype, D):
+    """K1 at Sq = 1, non-causal, with a key mask: a contiguous-cache decode
+    step (generate, the slab engine) through the attention dispatcher, at
+    ragged lengths (one slot with no valid key)."""
+    B, H, Hkv, Skv = 4, 8, 2, 640
+    q = torch.randn(B, H, 1, D, generator=gen, device="cuda", dtype=dtype)
+    k, v = (torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda", dtype=dtype)
+            for _ in range(2))
+    lengths = torch.tensor([513, 1, 640, 0], device="cuda")
+    kv_mask = torch.arange(Skv, device="cuda")[None, :] < lengths[:, None]
+    before = fl.launches["flash_attention_fwd"]
+    got = attn.attention(q, k, v, kv_mask=kv_mask, causal=False)
+    assert fl.launches["flash_attention_fwd"] == before + 1
+    _assert_close(got, attn.attention_plain(q, k, v, kv_mask=kv_mask, causal=False), dtype)
+    assert not got[3].any()
 
 
 def test_flash_wrapper_rejects_unsupported_head_dim(gen):
@@ -692,3 +778,39 @@ def test_quantized_llama_card_matches_cpu(gen, gate):
         want, _ = qcpu(input_ids=ids, w8a8_min_rows=gate)
     assert tw.launches["wo_matmul"] - before == (1 if gate else 2 * 4 + 1)
     _assert_close(got.cpu(), want, torch.float32)
+
+
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_slab_engine_card_matches_cpu(gen, spec_k):
+    """A tiny float32 model served with kv_mode="slab" on the card and on the
+    CPU: equal greedy tokens; on the card every decode step's attention is
+    K1 at Sq = 1 and no paged kernel runs."""
+    from multimeditron_torch.models.llama import LlamaConfig
+    from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
+    from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
+
+    cfg = MultimodalConfig(llm=LlamaConfig(vocab_size=300, hidden_size=256,
+                                           intermediate_size=512, num_layers=2, num_heads=4,
+                                           num_kv_heads=2, dtype=torch.float32),
+                           eos_token_idx=1)  # head dim 64
+    cpu = MultimodalModel(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = MultimodalModel(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    batches = []
+    for n in (30, 12, 50):
+        ids = rng.integers(2, 300, (1, n)).astype(np.int32)
+        batches.append({"input_ids": ids, "attention_mask": np.ones_like(ids)})
+    ecfg = dict(max_slots=2, max_seq_len=80, prefill_buckets=(16, 32), max_new_tokens=12,
+                do_sample=False, kv_mode="slab", speculative_k=spec_k)
+    names = ("paged_attention", "ring_decode_attention", "ring_verify_attention",
+             "fold_ring_into_pages")
+    before = dict(fl.launches), {n: paged.launches[n] for n in names}
+    eng = ServingEngine(card, EngineConfig(**ecfg))
+    got = eng.generate(batches)
+    want = ServingEngine(cpu, EngineConfig(**ecfg)).generate(batches)
+    assert got == want
+    k1 = fl.launches["flash_attention_fwd"] - before[0]["flash_attention_fwd"]
+    assert k1 == (0 if spec_k else 2 * eng.n_decode_steps)
+    assert all(paged.launches[n] == before[1][n] for n in names)

@@ -126,9 +126,8 @@ def test_oversized_and_long_prompts_rejected(pair):
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_mode="slab"), dict(speculative_k=2, kv_mode="slab"), dict(tp=2),
-    dict(quantize_llm=True, tp=2), dict(quantize_llm=True, w8a8_prefill=True, kv_mode="slab"),
-    dict(prefill_group_cap=1, tp=2), dict(attn_impl="xla"),
+    dict(tp=2), dict(quantize_llm=True, tp=2), dict(prefill_group_cap=1, tp=2),
+    dict(attn_impl="xla"),
 ])
 def test_unported_engine_options_raise(pair, option):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -1,6 +1,7 @@
 """Port parity: the Llama decoder against JAX in f32 — no cache, contiguous
-prefill into a cache, one paged decode step and one speculative verify block
-— with weights moved by multimeditron_torch.convert."""
+prefill into a cache, contiguous decode steps (S = 1 and 2, and writes past
+the cache's end), one paged decode step and one speculative verify block —
+with weights moved by multimeditron_torch.convert."""
 
 import dataclasses
 
@@ -180,15 +181,57 @@ def test_unported_options_raise(option):
         tl.Llama(cfg, device="cpu")
 
 
-def test_unported_cache_modes_raise():
-    _, _, model = _pair("llama_gqa")
+def _filled_cache(cfg, B, max_len, lengths, seed):
+    """A contiguous cache holding random K/V (stale rows included) and the
+    given per-sample lengths, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.num_layers, B, cfg.num_kv_heads, max_len, cfg.head_dim_)
+    return dict(k=rng.normal(size=shape).astype(np.float32),
+                v=rng.normal(size=shape).astype(np.float32),
+                length=np.asarray(lengths, np.int32))
+
+
+def _cache_step_pair(jcfg, params, model, ids, arrays, prefill):
+    """One forward of ``ids`` against the cache ``arrays`` in JAX and in the
+    port: (JAX logits, JAX cache, port logits, port cache)."""
+    want, jnew = jl.llama_forward(params, jcfg, input_ids=jnp.asarray(ids), prefill=prefill,
+                                  kv_cache={k: jnp.asarray(a) for k, a in arrays.items()})
     with torch.inference_mode():
-        cache = tl.init_kv_cache(model.cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match="contiguous cache"):
-            model(input_ids=torch.zeros((1, 1), dtype=torch.long), kv_cache=cache)
-        # a multi-token step against a contiguous cache is decode too
-        with pytest.raises(NotImplementedError, match="contiguous cache"):
-            model(input_ids=torch.zeros((1, 2), dtype=torch.long), kv_cache=cache)
+        tcache = {k: torch.from_numpy(a.copy()) for k, a in arrays.items()}
+        got, tnew = model(input_ids=torch.from_numpy(ids), kv_cache=tcache, prefill=prefill)
+    return np.asarray(want), jnew, got.numpy(), tnew
+
+
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("name", ["llama_gqa", "tied_mha"])
+def test_contiguous_decode_matches_jax(name, S):
+    """A decode step (S = 1) and a multi-token step (S = 2) against a
+    contiguous cache with ragged lengths: K/V written at each sample's
+    length, then non-causal attention over the masked cache."""
+    jcfg, params, model = _pair(name)
+    arrays = _filled_cache(jcfg, 3, 12, [5, 0, 9], seed=4)
+    want, jnew, got, tnew = _cache_step_pair(jcfg, params, model, _ids(3, S, seed=5),
+                                             arrays, prefill=False)
+    np.testing.assert_allclose(got, want, **TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tnew[key].numpy(), np.asarray(jnew[key]), **TOL)
+    np.testing.assert_array_equal(tnew["length"].numpy(), np.asarray(jnew["length"]))
+
+
+@pytest.mark.parametrize("prefill", [False, True])
+def test_contiguous_writes_past_the_end_are_dropped(prefill):
+    """Rows at or past max_len are dropped, as JAX's out-of-range scatter
+    drops them: a sample at capacity (an inactive slot still running the
+    step) and one whose block reaches past the end (a verify block near
+    capacity)."""
+    jcfg, params, model = _pair("llama_gqa")
+    arrays = _filled_cache(jcfg, 3, 8, [8, 6, 2], seed=6)
+    want, jnew, got, tnew = _cache_step_pair(jcfg, params, model, _ids(3, 4, seed=7),
+                                             arrays, prefill=prefill)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tnew[key].numpy(), np.asarray(jnew[key]), **TOL)
+    np.testing.assert_array_equal(tnew["k"][:, 0].numpy(), arrays["k"][:, 0])  # untouched
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_paged_cache_layout_matches_jax():

@@ -1,7 +1,7 @@
-"""Port parity: the plain twins of K4 (ring decode attention), K6 (ring
-verify attention) and K5 (ring fold) against the JAX Pallas kernels
-(interpret mode) and XLA references, f32, on the CPU. Cases follow
-tests/test_paged_attention.py."""
+"""Port parity: the plain twins of K8 (paged decode attention), K4 (ring
+decode attention), K6 (ring verify attention) and K5 (ring fold) against the
+JAX Pallas kernels (interpret mode) and XLA references, f32 (and K8 in bf16
+as well), on the CPU. Cases follow tests/test_paged_attention.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +12,8 @@ from multimeditron_torch.ops import paged_attention as tp
 from multimeditron_tpu.ops.paged_attention import (
     fold_ring_into_pages,
     fold_ring_into_pages_pallas,
+    paged_attention_pallas,
+    paged_attention_xla,
     ring_decode_attention_pallas,
     ring_decode_attention_xla,
     ring_verify_attention_pallas,
@@ -22,6 +24,97 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 # the verify twin against the JAX verify reference: the bound of the JAX
 # package's own verify tests (tests/test_paged_attention.py:328-329)
 VERIFY_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _paged_case(B, H, Hkv, D, P, pm, lengths, seed=0):
+    """One layer's pool where slot b's lengths[b] tokens live in shuffled
+    pages (page 0, the trash page, never used), as the JAX tests build it."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * pm
+
+    def normal(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    q, kp, vp = normal(B, H, D), normal(Hkv, n_pages, P, D), normal(Hkv, n_pages, P, D)
+    ids = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((B, pm), np.int32)
+    pos = 0
+    for b in range(B):
+        used = -(-int(lengths[b]) // P)
+        table[b, :used] = ids[pos: pos + used]
+        pos += used
+    return q, kp, vp, table, np.asarray(lengths, np.int32)
+
+
+# every case of tests/test_paged_attention.py:48-90: (lengths, group, D, P,
+# pages_max, dtype), two kv heads
+PAGED_CASES = [
+    ([7, 129, 0, 256], 1, 64, 128, 2, "float32"),
+    ([7, 129, 0, 256], 4, 64, 128, 2, "float32"),
+    ([1, 1, 1, 1], 1, 64, 128, 2, "float32"),
+    ([1, 1, 1, 1], 4, 64, 128, 2, "float32"),
+    ([5, 128, 0, 200], 1, 64, 128, 2, "float32"),
+    ([5, 128, 0, 200], 4, 64, 128, 2, "float32"),
+    ([5, 128, 0, 200], 2, 128, 128, 2, "float32"),
+    ([5, 128, 0, 200], 3, 80, 128, 2, "float32"),
+    ([66, 3, 250, 0], 2, 64, 64, 4, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("lengths,group,D,P,pm,dtype", PAGED_CASES)
+def test_paged_twin_matches_pallas_and_xla(lengths, group, D, P, pm, dtype):
+    """K8's twin against the JAX XLA reference and the Pallas kernel in
+    interpret mode; slots of length 0 return exact zeros. bf16 inputs are
+    held at the JAX bf16 test's bound (tests/test_paged_attention.py:87)."""
+    Hkv = 2
+    q, kp, vp, table, lens = _paged_case(len(lengths), Hkv * group, Hkv, D, P, pm, lengths)
+    tol = TOL
+    if dtype == "bfloat16":
+        q, kp, vp = (a.astype(jnp.bfloat16) for a in (q, kp, vp))
+        tol = dict(atol=3e-2, rtol=3e-2)
+    tq, tkp, tvp = (torch.from_numpy(np.asarray(a, np.float32)).to(getattr(torch, dtype))
+                    for a in (q, kp, vp))
+    got = tp.paged_attention(tq, tkp, tvp, torch.from_numpy(table), torch.from_numpy(lens))
+    assert got.dtype == tq.dtype
+    got = got.float().numpy()
+    jargs = (*_jax(q, kp, vp), jnp.asarray(table), jnp.asarray(lens))
+    xla = np.asarray(paged_attention_xla(*jargs), np.float32)
+    pallas = np.asarray(paged_attention_pallas(*jargs, interpret=True), np.float32)
+    np.testing.assert_allclose(got, xla, **tol)
+    np.testing.assert_allclose(got, pallas, **tol)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].any()
+    assert tp.launches["paged_attention"] == 0  # CPU tensors take the twin
+
+
+def test_paged_twin_ignores_keys_past_the_length():
+    """Pool rows at positions >= lengths[b] and the trash page get no weight,
+    whatever finite values they hold."""
+    q, kp, vp, table, lens = _paged_case(3, 4, 2, 32, 16, 3, [5, 16, 33])
+    base = tp.paged_attention(*_torch(q, kp, vp, table, lens))
+    kp, vp = kp.copy(), vp.copy()
+    for b in range(3):
+        for pos in range(lens[b], 3 * 16):
+            page = table[b, pos // 16]
+            if page:
+                kp[:, page, pos % 16] = 50.0
+                vp[:, page, pos % 16] = -50.0
+    kp[:, 0], vp[:, 0] = 50.0, -50.0
+    again = tp.paged_attention(*_torch(q, kp, vp, table, lens))
+    np.testing.assert_allclose(again.numpy(), base.numpy(), **TOL)
+
+
+def test_paged_wrapper_rejects_bad_input():
+    q, kp, vp, table, lens = _torch(*_paged_case(2, 4, 2, 16, 16, 2, [3, 0]))
+    with pytest.raises(ValueError, match="pools"):
+        tp.paged_attention(q, kp[None], vp[None], table, lens)
+    with pytest.raises(ValueError, match="disagree"):
+        tp.paged_attention(q[:, :3], kp, vp, table, lens)
+    with pytest.raises(ValueError, match="page_table"):
+        tp.paged_attention(q, kp, vp, table[:1], lens)
+    with pytest.raises(ValueError, match="dtype"):
+        tp.paged_attention(q.double(), kp, vp, table, lens)
 
 
 def _ring_case(B, H, Hkv, D, P, pm, pages_len, gen, T=8, n_layers=2, seed=0,
