@@ -9,11 +9,13 @@ Phases, each of which raises on failure (non-zero exit):
 1. device: a CUDA device must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/;
-3. kernels: each kernel (K3 encoder attention and its gradient, K4 ring
-   decode attention, K8 paged decode attention (the serving shape and a
-   4,096-token case), K6 ring verify attention, K5 ring fold, K1 flash
-   forward (the training shape, and its decode form: Sq = 1 over a masked
-   640-key cache), K2a/K2b flash backward) against its plain PyTorch twin on
+3. kernels: each kernel (K3 encoder attention and its gradient at the
+   serving batch, and in bf16 at the encode batch of 256 images beside SDPA's
+   device time; K4 ring decode attention, K8 paged decode attention (the
+   serving shape and a 4,096-token case), K6 ring verify attention, K5 ring
+   fold, K1 flash forward (the training shape, with its TFLOP/s and SDPA's
+   device time, and its decode form: Sq = 1 over a masked 640-key cache),
+   K2a/K2b flash backward on K1's own o and lse) against its plain PyTorch twin on
    the card, at the main paths' shapes, in float32 and bfloat16; the W8A8 ViT
    kernels (K7a
    ln_quant, K7g qkv_attn_int8 in each consume path: int8 out, float out,
@@ -58,7 +60,8 @@ Phases, each of which raises on failure (non-zero exit):
    quantize_mlp_projector; 8 batches of 256 uint8 224x224 images through the
    uint8 wire normalisation, int8 tower + int8 projector against the bf16
    tower + projector on the same images: img/s of each, calibration time,
-   cosine (fails below 0.99), each K7 kernel's launches;
+   cosine (fails below 0.99), each K7 kernel's launches, and K3's in the bf16
+   run (24 a batch);
 10. serving with the int8 tower: phase 5 again on the quantised model; the
    K7 kernels launch and K3 does not;
 11. int8 LLM serving at full width (the JAX bench's 8B configuration): the
@@ -327,12 +330,14 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int = 10, tries: int = 3):
+def device_ms(fn, n: int = 10, tries: int = 3, label: str = ""):
     """Device time of ``fn`` per call: the CUDA time of every kernel that the
     calls launch, summed from a torch.profiler trace of ``n`` calls, over n.
     Kineto now and then returns a trace that holds no device event at all;
     such a trace is taken again, up to ``tries`` times, and after that the
-    time is None ("not measured": the CUDA-event ``ms`` stands alone)."""
+    time is None ("not measured": the CUDA-event ``ms`` stands alone).
+    With a ``label``, the count of device events in the trace is logged, so
+    that a trace missing some of its events shows beside its time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -342,8 +347,12 @@ def device_ms(fn, n: int = 10, tries: int = 3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(spans)
+        if label:
+            log(f"  {label}: {len(spans)} device events in {n} calls, "
+                f"{us / 1e3 / n:.4f} ms a call on the device")
         if us > 0:
             return us / 1e3 / n
         log(f"  torch.profiler recorded no device time (trace {attempt} of {tries})")
@@ -381,19 +390,47 @@ def check_grad(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> 
 # ----------------------------------------------------------------------
 # Phase 3: each kernel against its plain twin
 # ----------------------------------------------------------------------
-def check_encoder_attention(dtype, gen) -> dict:
-    B, S, H, Dh = 8, 257, 16, 64  # CLIP ViT-L/14 encode batch of the main path
-    q, k, v = (torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
-               for _ in range(3))
-    scale = Dh ** -0.5
-    tag = f"K3 {str(dtype)[6:]}"
+def k3_times(q, k, v, H: int, dtype) -> dict:
+    """K3's times at one shape (every key valid): the kernel by events and on
+    the device, the plain twin, SDPA on the same heads, and the bound."""
+    B, S, D = q.shape
+    Dh = D // H
+    qh, kh, vh = (x.view(B, S, H, Dh).transpose(1, 2).contiguous() for x in (q, k, v))
+    tag = f"K3 {str(dtype)[6:]} B={B}"
+    return dict(ms=time_ms(lambda: enc.encoder_attention(q, k, v, H)),
+                device_ms=device_ms(lambda: enc.encoder_attention(q, k, v, H), label=tag),
+                plain_ms=time_ms(lambda: enc.encoder_attention_plain(q, k, v, H, Dh ** -0.5)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+                library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                                            label=f"SDPA beside {tag}"),
+                # q, k, v read and o written; QK^T and PV over every pair
+                **bound(dtype, 4 * q.numel() * q.element_size(), 4 * B * H * S * S * Dh))
+
+
+def check_k3_masks(tag: str, q, k, v, H: int, dtype) -> float:
+    """K3 against its twin with every key valid and with keys from 200 on
+    masked (rows past kv_len are garbage by contract)."""
+    scale = (q.shape[-1] // H) ** -0.5
+    S = q.shape[1]
     err = check_close(f"{tag} S={S}", enc.encoder_attention(q, k, v, H),
                       enc.encoder_attention_plain(q, k, v, H, scale), TOL[dtype])
-    kv_len = 200  # keys past kv_len masked; rows past it are garbage by contract
+    kv_len = 200
     check_close(f"{tag} kv_len={kv_len}",
                 enc.encoder_attention(q, k, v, H, kv_len=kv_len)[:, :kv_len],
                 enc.encoder_attention_plain(q, k, v, H, scale, kv_len)[:, :kv_len],
                 TOL[dtype])
+    return err
+
+
+def check_encoder_attention(dtype, gen) -> dict:
+    """K3 at CLIP ViT-L/14's serving batch (8 images) with its gradient, and
+    in bf16 at the encode batch (256 images)."""
+    B, S, H, Dh = 8, 257, 16, 64
+    q, k, v = (torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
+               for _ in range(3))
+    scale = Dh ** -0.5
+    tag = f"K3 {str(dtype)[6:]}"
+    err = check_k3_masks(tag, q, k, v, H, dtype)
     # the gradient: the kernel's autograd Function against the twin's vjp
     qkv = [x.requires_grad_() for x in (q, k, v)]
     do = torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
@@ -404,15 +441,19 @@ def check_encoder_attention(dtype, gen) -> dict:
     want = torch.autograd.grad(enc.encoder_attention_plain(*qkv, H, scale), qkv, do)
     for name, a, b in zip("qkv", got, want):
         check_grad(f"{tag} d{name}", a, b, GRAD_TOL[dtype])
-    q, k, v = (x.detach() for x in qkv)
-    qh, kh, vh = (x.view(B, S, H, Dh).transpose(1, 2).contiguous() for x in (q, k, v))
-    return dict(max_abs_err=err,
-                ms=time_ms(lambda: enc.encoder_attention(q, k, v, H)),
-                device_ms=device_ms(lambda: enc.encoder_attention(q, k, v, H)),
-                plain_ms=time_ms(lambda: enc.encoder_attention_plain(q, k, v, H, scale)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-                # q, k, v read and o written; QK^T and PV over every pair
-                **bound(dtype, 4 * q.numel() * q.element_size(), 4 * B * H * S * S * Dh))
+    res = dict(max_abs_err=err, **k3_times(*(x.detach() for x in qkv), H, dtype))
+    if dtype == torch.bfloat16:
+        big = [torch.randn(256, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
+               for _ in range(3)]
+        res["encode_shape"] = dict(max_abs_err=check_k3_masks(f"{tag} B=256", *big, H, dtype),
+                                   **k3_times(*big, H, dtype))
+        e = res["encode_shape"]
+        log(f"  K3 bf16 B=256: kernel {e['ms']:.4f} ms (device {fmt_ms(e['device_ms'])}), "
+            f"plain {e['plain_ms']:.4f}, SDPA {e['library_ms']:.4f} (device "
+            f"{fmt_ms(e['library_device_ms'])}), bound {e['bound_ms']:.4f} ({e['bound_by']})")
+        del big
+        torch.cuda.empty_cache()
+    return res
 
 
 def paged_case(dtype, gen):
@@ -636,8 +677,9 @@ def flash_case(dtype, gen, B, H, Hkv, Sq, Skv, D, dead_keys=()):
 
 
 def check_flash_case(tag, dtype, gen, B, H, Hkv, Sq, Skv, D, causal, dead_keys):
-    """K1, K2a, K2b against their twins on one case; returns the errors and
-    the inputs the timings reuse."""
+    """K1 against its twin, then K2a, K2b on K1's o and lse against the twins'
+    gradients, on one case; returns the errors and the inputs the timings
+    reuse."""
     q, k, v, kv_mask = flash_case(dtype, gen, B, H, Hkv, Sq, Skv, D, dead_keys)
     scale, offset = D ** -0.5, Skv - Sq
     o, lse = fl._fwd_kernel(q, k, v, kv_mask, causal, scale, offset)
@@ -647,12 +689,13 @@ def check_flash_case(tag, dtype, gen, B, H, Hkv, Sq, Skv, D, causal, dead_keys):
     empty = lse_ref == fl.MASK_VALUE
     if not torch.equal(lse == fl.MASK_VALUE, empty) or o[empty].any():
         raise AssertionError(f"K1 {tag}: rows with no valid key are not exact zeros")
+    # K2a / K2b read K1's own o and lse, as in training, and so does their twin
     do = torch.randn(o.shape, generator=gen, device="cuda", dtype=dtype)
-    di = (o_ref.float() * do.float()).sum(dim=-1)
-    bwd = (q, k, v, kv_mask, lse_ref, di, do, causal, scale, offset)
+    di = (o.float() * do.float()).sum(dim=-1)
+    bwd = (q, k, v, kv_mask, lse, di, do, causal, scale, offset)
     dq = fl._dq_kernel(*bwd)
     dk, dv = fl._dkv_kernel(*bwd)
-    dq_ref, dk_ref, dv_ref = fl.flash_attention_bwd_plain(q, k, v, kv_mask, o_ref, lse_ref, do,
+    dq_ref, dk_ref, dv_ref = fl.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do,
                                                           causal, scale)
     err_dq = check_grad(f"K2a {tag} dq", dq, dq_ref, GRAD_TOL[dtype])
     err_dkv = max(check_grad(f"K2b {tag} dk", dk, dk_ref, GRAD_TOL[dtype]),
@@ -661,7 +704,7 @@ def check_flash_case(tag, dtype, gen, B, H, Hkv, Sq, Skv, D, causal, dead_keys):
     if dk[dead].any() or dv[dead].any():
         raise AssertionError(f"K2b {tag}: masked keys got a nonzero gradient")
     return dict(err_o=err_o, err_dq=err_dq, err_dkv=err_dkv, q=q, k=k, v=v, kv_mask=kv_mask,
-                o=o_ref, lse=lse_ref, do=do, bwd=bwd, causal=causal, scale=scale)
+                o=o, lse=lse, do=do, bwd=bwd, causal=causal, scale=scale)
 
 
 def check_flash(dtype, gen) -> dict:
@@ -687,6 +730,8 @@ def check_flash(dtype, gen) -> dict:
     allowed = torch.ones(S, S, dtype=torch.bool, device="cuda").tril() & (kv_mask[:, None, None, :] != 0)
     sdpa = dict(attn_mask=allowed, scale=c["scale"], enable_gqa=True)
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), n=10)
+    lib_fwd_device = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), n=5,
+                               label=f"SDPA beside K1 {t}")
     qkv = [x.detach().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*qkv, **sdpa)
     lib_bwd = time_ms(lambda: torch.autograd.grad(out, qkv, do, retain_graph=True), n=10)
@@ -696,13 +741,18 @@ def check_flash(dtype, gen) -> dict:
     pairs = int(kv_mask.cumsum(dim=1).sum())
     elt, big, small = q.element_size(), q.numel(), k.numel()
     rows = B * H * S * 4 + kv_mask.numel() * 4  # lse (or di) and the mask, float32/int32
+    fwd_ms = time_ms(lambda: fl._fwd_kernel(*fwd), n=10)
+    fwd_device_ms = device_ms(lambda: fl._fwd_kernel(*fwd), n=5, label=f"K1 {t}")
+    fwd_ops = 4 * H * D * pairs
+    rate = fwd_ops / ((fwd_device_ms or fwd_ms) * 1e-3) / 1e12
+    log(f"  K1 {t} S=4096: {rate:.1f} TFLOP/s on "
+        f"{'the device time' if fwd_device_ms else 'the event time'}")
     return {
         "flash_attention_fwd": dict(
-            max_abs_err=c["err_o"], ms=time_ms(lambda: fl._fwd_kernel(*fwd), n=10),
-            device_ms=device_ms(lambda: fl._fwd_kernel(*fwd), n=5),
+            max_abs_err=c["err_o"], ms=fwd_ms, device_ms=fwd_device_ms,
             plain_ms=time_ms(lambda: fl.flash_attention_fwd_plain(*fwd[:-1]), n=10),
-            library_ms=lib_fwd,
-            **bound(dtype, (2 * big + 2 * small) * elt + rows, 4 * H * D * pairs)),
+            library_ms=lib_fwd, library_device_ms=lib_fwd_device, tflops=rate,
+            **bound(dtype, (2 * big + 2 * small) * elt + rows, fwd_ops)),
         # the twin and SDPA's backward compute dq, dk and dv in one function:
         # their times stand beside each backward kernel
         "flash_attention_bwd_dq": dict(
@@ -1877,7 +1927,9 @@ def run_int8_encode(model: MultimodalModel, n_batches: int = 8, batch: int = 256
         reset_launch_counts()
         int8_rate = rate(int8)
         counts = launch_counts(INT8_TOWER + ("encoder_attention",))
+        reset_launch_counts(("encoder_attention",))
         bf16_rate = rate(bf16)
+        k3_bf16 = launch_counts(("encoder_attention",))["encoder_attention"]
         a, b = int8(batches[0]).float(), bf16(batches[0]).float()
         cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
         tok_cos = F.cosine_similarity(a, b, dim=-1).mean().item()
@@ -1897,9 +1949,13 @@ def run_int8_encode(model: MultimodalModel, n_batches: int = 8, batch: int = 256
         raise AssertionError(f"int8 encode cosine {cos} against bf16 below 0.99")
     if not counts_ok:
         raise AssertionError(f"K7 launches are not 1 (K7a) and 24 (others) per batch: {counts}")
+    if k3_bf16 != 24 * (n_batches + 1):
+        raise AssertionError(f"bf16 encode: K3 launched {k3_bf16} times over {n_batches + 1} "
+                             f"batches, not 24 a batch")
     return dict(int8_img_per_s=int8_rate, bf16_img_per_s=bf16_rate, calibration_s=calib_s,
                 cosine=cos, token_cosine_mean=tok_cos, batches=n_batches, batch=batch,
-                profile_int8=prof_int8, profile_bf16=prof_bf16, launches=counts)
+                profile_int8=prof_int8, profile_bf16=prof_bf16, launches=counts,
+                bf16_encoder_attention_launches=k3_bf16)
 
 
 # ----------------------------------------------------------------------

@@ -10,6 +10,11 @@ it, an unchanged tree reuses it.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
 exception. A missing ``nvcc`` or a failed build raises.
+
+The library links against the CUDA runtime only. The TMA tensor maps of the
+wgmma kernels are encoded with libcuda's ``cuTensorMapEncodeTiled``,
+which ``csrc/hopper.cuh`` looks up at run time through the runtime's
+``cudaGetDriverEntryPoint[ByVersion]``, so no ``-lcuda`` is needed.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@
 // Causal masking keeps key j for query i when i + offset >= j (the wrapper
 // passes offset = Skv - Sq for end alignment).
 //
-// Every kernel works on 64-row tiles of queries and keys, in two versions:
+// The bf16 forward for Sq >= 64 (flash_fwd.cu, flash_fwd_wgmma_kernel) works
+// on 128-row tiles with wgmma and TMA (hopper.cuh). Every other kernel works
+// on 64-row tiles of queries and keys, in two versions:
 //
 // - float32 on the CUDA cores: 256 threads laid out 16 x 16; thread (tx, ty)
 //   owns tile rows ty + 16 * i (i < 4) and tile columns tx + 16 * j (j < 4)
@@ -111,10 +113,12 @@ __device__ __forceinline__ void load_key_valid(int* dst, const int* __restrict__
   }
 }
 
-// Number of 64-key tiles a causal query tile [q0, q1] (inclusive) has to visit.
-__host__ __device__ __forceinline__ int kv_tiles(int q_last, int Skv, int causal, int offset) {
+// Number of `tile`-key tiles a query tile whose last row is q_last has to
+// visit (all of them unless causal).
+__host__ __device__ __forceinline__ int kv_tiles(int q_last, int Skv, int causal, int offset,
+                                                 int tile = kTile) {
   const int end = causal ? clamp_int(static_cast<long long>(q_last) + offset + 1, 0, Skv) : Skv;
-  return (end + kTile - 1) / kTile;
+  return (end + tile - 1) / tile;
 }
 
 // ---------------------------------------------------------------------------
@@ -216,6 +220,14 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
                                    : make_uint4(0u, 0u, 0u, 0u);
     *reinterpret_cast<uint4*>(dst + r * Dims<D>::kLd + c) = val;
   }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero (a p
+// below 2^-126 adds nothing to a bf16 product or to l); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Reductions over the four lanes that share an accumulator row.

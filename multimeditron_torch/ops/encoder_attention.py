@@ -8,6 +8,9 @@ the caller drops.
 
 ``encoder_attention`` runs the CUDA kernel ``csrc/encoder_attention.cu`` on a
 CUDA tensor and the plain twin ``encoder_attention_plain`` on a CPU tensor.
+bf16 runs on the tensor cores (``mma.sync``; any even head dim up to 128,
+padded with zero columns inside the kernel); float32 on the CUDA cores in
+exact float32 (any even head dim).
 On the card the kernel sits in a ``torch.autograd.Function`` whose backward
 recomputes through the plain twin and returns its vjp, as the JAX
 ``custom_vjp`` recomputes through its XLA reference: the JAX package has no
@@ -82,10 +85,19 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"encoder_attention runs on cpu or cuda, not {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("encoder_attention needs contiguous q, k, v")
-    if dh % 2:
-        raise ValueError(f"the kernel takes an even head dim, got {dh}")
+    check_kernel_head_dim(q.dtype, dh)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the bf16 kernel needs 16-byte aligned q, k, v")
 
     return _EncoderAttention.apply(q, k, v, num_heads, float(sm_scale), kv_len)
+
+
+def check_kernel_head_dim(dtype: torch.dtype, dh: int) -> None:
+    """Raise unless the CUDA kernel takes head dim ``dh`` in ``dtype``."""
+    if dh % 2:
+        raise ValueError(f"the kernel takes an even head dim, got {dh}")
+    if dtype == torch.bfloat16 and dh > 128:
+        raise ValueError(f"the bf16 kernel takes a head dim up to 128, got {dh}")
 
 
 def _kernel(q, k, v, num_heads: int, sm_scale: float, kv_len: int) -> torch.Tensor:

@@ -9,8 +9,12 @@ key returns zeros and gets zero gradients; masked keys get zero dk and dv.
 
 ``flash_attention`` is a ``torch.autograd.Function``. On a CUDA tensor its
 forward launches K1 (``csrc/flash_fwd.cu``), which saves o and the base-2
-logsumexp ``lse``; its backward computes ``di = rowsum(o * do)`` as a plain
-op, as the JAX wrapper does, then launches K2a (dq) and K2b (dk, dv) from
+logsumexp ``lse``: in bf16 with at least 64 query rows on ``wgmma`` with
+K/V brought in by TMA (128-row query tiles), with fewer rows (the decode
+form, Sq = 1) on ``mma.sync`` (64-row tiles), in float32 on the CUDA cores.
+The C entry point chooses by dtype and rows; each call counts as one K1
+launch. Its backward computes ``di = rowsum(o * do)`` as a plain op, as the
+JAX wrapper does, then launches K2a (dq) and K2b (dk, dv) from
 ``csrc/flash_bwd.cu``: bf16 on the tensor cores (``mma.sync``), float32 on
 the CUDA cores. On a CPU tensor both directions run the plain twins
 ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain``, which are

@@ -49,9 +49,19 @@ def _assert_close(got, want, dtype):
     assert err <= TOL[dtype], err
 
 
+# the ViT-L/14 sequence (256 patches + CLS) with every key, a masked tail and
+# one key, at the serving batch and alone; head dims 32 and 8 are padded to
+# 16-column multiples inside the bf16 kernel
+VIT_CASES = [(B, 257, 16 if Dh == 64 else 4, Dh, kv_len)
+             for B in (1, 8) for Dh in (64, 32, 8) for kv_len in (257, 200, 1)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,Dh,kv_len", [
     (2, 5, 4, 8, None), (1, 17, 2, 16, 11), (3, 65, 2, 64, None), (1, 130, 1, 32, 129),
+    (2, 33, 2, 72, 30), (1, 40, 1, 128, None), *VIT_CASES,
+    # even head dims that are not a multiple of 8 (staged by 4-byte loads in bf16)
+    (2, 257, 3, 12, 200), (1, 70, 2, 70, None), (2, 19, 5, 2, 7),
 ])
 def test_encoder_attention_kernel(gen, dtype, B, S, H, Dh, kv_len):
     q, k, v = (torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=dtype)
@@ -62,6 +72,31 @@ def test_encoder_attention_kernel(gen, dtype, B, S, H, Dh, kv_len):
     want = enc.encoder_attention_plain(q, k, v, H, Dh ** -0.5, kv_len)
     n = kv_len or S
     _assert_close(got[:, :n], want[:, :n], dtype)
+
+
+@pytest.mark.parametrize("Dh", [64, 12])
+def test_encoder_attention_kernel_ignores_masked_keys(gen, Dh):
+    """NaN in the keys and values at or past kv_len never reaches a row
+    below it: the bf16 kernel stages zeros for them and masks their scores."""
+    B, S, H, kv_len = 2, 257, 4, 200
+    q, k, v = (torch.randn(B, S, H * Dh, generator=gen, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    want = enc.encoder_attention(q, k, v, H, kv_len=kv_len)[:, :kv_len]
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    got = enc.encoder_attention(q, k, v, H, kv_len=kv_len)[:, :kv_len]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_encoder_attention_kernel_refuses_head_dims(gen):
+    q = torch.randn(1, 9, 2 * 136, generator=gen, device="cuda")
+    enc.encoder_attention(q, q, q, 2)  # float32 takes any even head dim
+    with pytest.raises(ValueError, match="up to 128"):
+        enc.encoder_attention(*(x.bfloat16() for x in (q, q, q)), 2)
+    q9 = torch.randn(1, 9, 2 * 9, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="even head dim"):
+        enc.encoder_attention(q9, q9, q9, 2)
 
 
 def _paged(gen, dtype, B, H, Hkv, D, P, pm, pages_len, gen_rows, T=16, L=2):
@@ -280,6 +315,13 @@ FLASH_CASES = [
     (1, 6, 2, 100, 130, 64, False, None, "holes"),     # non-causal GQA
     (1, 4, 2, 70, 300, 128, True, 0, "right"),         # explicit offset
     (1, 8, 8, 130, 130, 128, True, -20, None),         # negative offset: empty rows
+    # whole and ragged 128-row tiles of the bf16 wgmma kernel
+    (1, 4, 2, 128, 128, 64, True, None, None),
+    (1, 4, 2, 128, 128, 128, False, None, "holes"),
+    (2, 8, 2, 300, 300, 128, True, None, "left"),      # rows with no valid key
+    (2, 4, 1, 300, 300, 64, False, None, "right"),
+    (2, 8, 2, 333, 517, 128, False, None, "holes"),
+    (1, 4, 4, 333, 517, 64, True, None, "left"),       # end-aligned, rows with no valid key
 ]
 
 
@@ -334,6 +376,23 @@ def test_flash_backward_kernels(gen, dtype, case):
     if kv_mask is not None:  # masked keys get exactly zero dk and dv
         dead = (kv_mask == 0)[:, None, :, None].expand_as(got[1])
         assert not got[1][dead].any() and not got[2][dead].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_backward_kernels_on_kernel_forward(gen, dtype, case):
+    """K2a / K2b fed K1's own o and lse, against the twins' gradients from
+    the same o and lse."""
+    B, H, Hkv, Sq, Skv, D, causal, off, mask = case
+    q, k, v, kv_mask = _flash_case(gen, dtype, B, H, Hkv, Sq, Skv, D, mask)
+    offset = Skv - Sq if off is None else off
+    o, lse = fl._fwd_kernel(q, k, v, kv_mask, causal, D ** -0.5, offset)
+    do = torch.randn(o.shape, generator=gen, device="cuda", dtype=dtype)
+    got = fl._bwd_kernel(q, k, v, kv_mask, o, lse, do, causal, D ** -0.5, offset)
+    want = fl.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal,
+                                        causal_offset=off)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= GRAD_TOL[dtype]
 
 
 def test_attention_dispatch_runs_flash_with_autograd(gen):
