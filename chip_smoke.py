@@ -15,7 +15,8 @@ Phases, each of which raises on failure (non-zero exit):
    serving shape and a 4,096-token case), K6 ring verify attention, K5 ring
    fold, K1 flash forward (the training shape, with its TFLOP/s and SDPA's
    device time, and its decode form: Sq = 1 over a masked 640-key cache),
-   K2a/K2b flash backward on K1's own o and lse) against its plain PyTorch twin on
+   K2a/K2b flash backward on K1's own o and lse, with their TFLOP/s and SDPA's
+   backward's device time) against its plain PyTorch twin on
    the card, at the main paths' shapes, in float32 and bfloat16; the W8A8 ViT
    kernels (K7a
    ln_quant, K7g qkv_attn_int8 in each consume path: int8 out, float out,
@@ -48,7 +49,8 @@ Phases, each of which raises on failure (non-zero exit):
 7. training at full width: the phase-5 model, ALIGNMENT (projector only,
    remat), one collated batch of 4 x 4096 tokens with 16 uint8 images,
    through MultimodalTrainer.train(): one warm-up step, then 3 timed steps;
-   counts each kernel's launches in that run;
+   counts each kernel's launches in that run; then one more step under
+   torch.profiler: its top device ops by name and the device's busy share;
 8. speculative serving at full width: the phase-5 model with k = 4, greedy,
    8 slots: 3 requests of 512 tokens, a forked group of 4 over a 512-token
    prompt and a 1,000-token prompt that prefills in two chunks, each with
@@ -710,9 +712,10 @@ def check_flash_case(tag, dtype, gen, B, H, Hkv, Sq, Skv, D, causal, dead_keys):
 def check_flash(dtype, gen) -> dict:
     """K1/K2a/K2b at the full-width training shape with B=1 (the plain twin's
     float32 scores are 2.1 GB per batch row): H=32, Hkv=8, S=4096, D=128,
-    causal, keys from 3500 on masked (right padding); then two small edge
-    cases: left padding that leaves query rows with no valid key, and a
-    non-causal, ragged, D=64 GQA case with holes in the mask."""
+    causal, keys from 3500 on masked (right padding); then three small edge
+    cases: left padding that leaves query rows with no valid key, a
+    non-causal, ragged, D=64 GQA case with holes in the mask, and 17
+    end-aligned query rows over 1,000 keys with a whole key tile masked."""
     t = str(dtype)[6:]
     c = check_flash_case(f"{t} S=4096", dtype, gen, 1, 32, 8, 4096, 4096, 128, True,
                          [(0, 3500, 4096)])
@@ -720,6 +723,8 @@ def check_flash(dtype, gen) -> dict:
                      [(0, 0, 100), (1, 250, 300)])
     check_flash_case(f"{t} non-causal D=64", dtype, gen, 2, 8, 2, 333, 517, 64, False,
                      [(0, 3, 9), (1, 400, 517)])
+    check_flash_case(f"{t} Sq=17 over 1000 keys", dtype, gen, 1, 8, 2, 17, 1000, 64, True,
+                     [(0, 128, 256), (0, 864, 1000)])
     fwd = (c["q"], c["k"], c["v"], c["kv_mask"], c["causal"], c["scale"], 0)
     twin_bwd = (c["q"], c["k"], c["v"], c["kv_mask"], c["o"], c["lse"], c["do"], c["causal"],
                 c["scale"])
@@ -735,6 +740,8 @@ def check_flash(dtype, gen) -> dict:
     qkv = [x.detach().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*qkv, **sdpa)
     lib_bwd = time_ms(lambda: torch.autograd.grad(out, qkv, do, retain_graph=True), n=10)
+    lib_bwd_device = device_ms(lambda: torch.autograd.grad(out, qkv, do, retain_graph=True),
+                               n=5, label=f"SDPA backward beside K2 {t}")
     del out, qkv
     # (query, key) pairs the causal mask and the key mask leave: query i
     # sees the valid keys j <= i
@@ -747,6 +754,21 @@ def check_flash(dtype, gen) -> dict:
     rate = fwd_ops / ((fwd_device_ms or fwd_ms) * 1e-3) / 1e12
     log(f"  K1 {t} S=4096: {rate:.1f} TFLOP/s on "
         f"{'the device time' if fwd_device_ms else 'the event time'}")
+    # K2a recomputes s and dp and takes dq (6 H D FLOP a pair), K2b s, dp, dv
+    # and dk (8 H D)
+    bwd = {}
+    for name, tag, fn, flop in (("flash_attention_bwd_dq", "K2a", fl._dq_kernel, 6),
+                                ("flash_attention_bwd_dkv", "K2b", fl._dkv_kernel, 8)):
+        ms = time_ms(lambda: fn(*c["bwd"]), n=10)
+        dev = device_ms(lambda: fn(*c["bwd"]), n=5, label=f"{tag} {t}")
+        ops = flop * H * D * pairs
+        bwd[name] = dict(ms=ms, device_ms=dev, tflops=ops / ((dev or ms) * 1e-3) / 1e12, ops=ops)
+        log(f"  {tag} {t} S=4096: {bwd[name]['tflops']:.1f} TFLOP/s on "
+            f"{'the device time' if dev else 'the event time'}")
+    dq, dkv = bwd["flash_attention_bwd_dq"], bwd["flash_attention_bwd_dkv"]
+    log(f"  K2a + K2b {t} S=4096: {dq['ms'] + dkv['ms']:.4f} ms by events against SDPA's "
+        f"backward {lib_bwd:.4f} (device: {fmt_ms(dq['device_ms'])} + "
+        f"{fmt_ms(dkv['device_ms'])} against {fmt_ms(lib_bwd_device)})")
     return {
         "flash_attention_fwd": dict(
             max_abs_err=c["err_o"], ms=fwd_ms, device_ms=fwd_device_ms,
@@ -756,17 +778,15 @@ def check_flash(dtype, gen) -> dict:
         # the twin and SDPA's backward compute dq, dk and dv in one function:
         # their times stand beside each backward kernel
         "flash_attention_bwd_dq": dict(
-            max_abs_err=c["err_dq"], ms=time_ms(lambda: fl._dq_kernel(*c["bwd"]), n=10),
-            device_ms=device_ms(lambda: fl._dq_kernel(*c["bwd"]), n=5),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
-            **bound(dtype, (3 * big + 2 * small) * elt + rows + B * H * S * 4,
-                    6 * H * D * pairs)),
+            max_abs_err=c["err_dq"], ms=dq["ms"], device_ms=dq["device_ms"],
+            plain_ms=plain_bwd, library_ms=lib_bwd, library_device_ms=lib_bwd_device,
+            tflops=dq["tflops"],
+            **bound(dtype, (3 * big + 2 * small) * elt + rows + B * H * S * 4, dq["ops"])),
         "flash_attention_bwd_dkv": dict(
-            max_abs_err=c["err_dkv"], ms=time_ms(lambda: fl._dkv_kernel(*c["bwd"]), n=10),
-            device_ms=device_ms(lambda: fl._dkv_kernel(*c["bwd"]), n=5),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
-            **bound(dtype, (2 * big + 4 * small) * elt + rows + B * H * S * 4,
-                    8 * H * D * pairs)),
+            max_abs_err=c["err_dkv"], ms=dkv["ms"], device_ms=dkv["device_ms"],
+            plain_ms=plain_bwd, library_ms=lib_bwd, library_device_ms=lib_bwd_device,
+            tflops=dkv["tflops"],
+            **bound(dtype, (2 * big + 4 * small) * elt + rows + B * H * S * 4, dkv["ops"])),
     }
 
 
@@ -1824,8 +1844,13 @@ def run_train_full_width(model: MultimodalModel) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts(TRAINING + ("encoder_attention",))
+        # one more step under torch.profiler: device time by kernel, busy share
+        profile = busy_profile(lambda: trainer.train(iter([batch]), num_steps=5, logger=logger))
         logger.close()
-    timed = logger.records[1:]
+    log(f"  profiled step: wall {profile['wall_ms']:.1f} ms, busy share "
+        f"{profile['busy_share']}, top device ops (ms) "
+        f"{ {k: round(v, 1) for k, v in profile['top_kernels_ms'].items()} }")
+    timed = logger.records[1:4]
     losses = [r["loss"] for r in timed]
     log(f"  losses {losses}, step times {[round(r['step_time_s'], 3) for r in timed]} s, "
         f"launches {counts}")
@@ -1848,7 +1873,7 @@ def run_train_full_width(model: MultimodalModel) -> dict:
     out = dict(losses=losses, step_time_s=[r["step_time_s"] for r in timed],
                tokens_per_step=int(batch["input_ids"].size), wall_s=wall,
                tokens_per_sec=last["tokens_per_sec"], mfu=last["mfu"],
-               max_memory_allocated_gb=peak / 1e9, launches=counts)
+               max_memory_allocated_gb=peak / 1e9, launches=counts, profiled_step=profile)
     log(f"  {out['tokens_per_sec']:.0f} tokens/s, MFU {out['mfu']:.4f}, "
         f"peak memory {out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
     return out

@@ -1,16 +1,21 @@
-"""Time the W8A8 ViT kernels (K7c, K7d, K7e, K7g) and the weight-only int8
-matmul K9 of several kernel source trees in one process, on one card: K7 at
-the ViT-L/14 encode shape (256 images, M = 65,792 rows), K9 in bf16 at the
+"""Time the hand-written kernels of several kernel source trees in one
+process, on one card: the flash kernels K1, K2a and K2b in bf16 at the
+training shape (B = 1, H = 32, Hkv = 8, S = 4096, D = 128, causal, keys from
+3500 masked; K2a and K2b on K1's o and lse from the first tree), the W8A8 ViT
+kernels (K7c, K7d, K7e, K7g) at the ViT-L/14 encode shape (256 images,
+M = 65,792 rows) and the weight-only int8 matmul K9 in bf16 at the
 Llama-3.1-8B decode shapes (M = 8) and the W8A16 prefill's gate-up
 (M = 4,096).
 
-    python3 kernel_ab.py [SOURCE_DIR ...]
+    python3 kernel_ab.py [--only NAME[,NAME...]] [SOURCE_DIR ...]
 
 Each SOURCE_DIR holds a copy of ``multimeditron_torch/csrc`` (default: that
 directory alone); every tree is built into its own library. The trees run in
 turns, forward then backward (A, B, B, A), each timed by its kernels' device
 time from torch.profiler, and every tree's outputs are compared with the
-first tree's.
+first tree's: equal, or the largest difference relative to the largest
+value. ``--only`` keeps the kernels whose names start with one of the given
+prefixes (e.g. ``--only flash``).
 """
 
 from __future__ import annotations
@@ -22,11 +27,26 @@ import torch
 
 import chip_smoke as cs
 from multimeditron_torch import _build
+from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import vit_int8_fused as v8
 from multimeditron_torch.ops import wo_matmul as wo
 
 
-def main(dirs) -> int:
+def flash_runs(gen) -> dict:
+    """K1, K2a and K2b at the training shape, on the current library."""
+    q, k, v, kv_mask = cs.flash_case(torch.bfloat16, gen, 1, 32, 8, 4096, 4096, 128,
+                                     [(0, 3500, 4096)])
+    scale = 128 ** -0.5
+    o, lse = fl._fwd_kernel(q, k, v, kv_mask, True, scale, 0)
+    do = torch.randn(o.shape, generator=gen, device="cuda", dtype=o.dtype)
+    di = (o.float() * do.float()).sum(dim=-1)
+    bwd = (q, k, v, kv_mask, lse, di, do, True, scale, 0)
+    return {"flash K1": lambda: fl._fwd_kernel(q, k, v, kv_mask, True, scale, 0),
+            "flash K2a": lambda: fl._dq_kernel(*bwd),
+            "flash K2b": lambda: fl._dkv_kernel(*bwd)}
+
+
+def main(dirs, only=()) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -34,8 +54,10 @@ def main(dirs) -> int:
     for d in dirs:
         _build.CSRC, _build._lib = pathlib.Path(d).resolve(), None
         libs[d] = _build.library()
+    _build._lib = libs[dirs[0]]
+    runs = flash_runs(torch.Generator(device="cuda").manual_seed(2))
     c = cs.int8_case(torch.Generator(device="cuda").manual_seed(0), 256)
-    runs = {
+    runs.update({
         "qkv_attn_int8": lambda: v8.qkv_attn_int8(c["xq"], c["wqkv"], c["wqkv_s"], c["qkv_b"],
                                                   c["scales6"], 16, 257),
         "oproj_ln_quant": lambda: v8.oproj_ln_quant(c["o8"], c["x"], c["wo"], c["wo_s"], c["bD"],
@@ -45,7 +67,7 @@ def main(dirs) -> int:
         "fc2_res_ln_quant": lambda: v8.fc2_res_ln_quant(c["h8"], c["x"], c["w2"], c["w2_s"],
                                                         c["bD"], c["lnw"], c["lnb"], 1.3, 0.025,
                                                         1e-5),
-    }
+    })
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes = [(name, 8, K, N) for name, (K, N) in cs.LLAMA_8B_PROJ.items()]
     shapes += [("lm_head", 8, *cs.LM_HEAD_8B), ("gateup", 4096, *cs.LLAMA_8B_PROJ["gateup"])]
@@ -55,9 +77,16 @@ def main(dirs) -> int:
         ws = (0.5 + torch.rand(N, generator=gen, device="cuda")) * (0.5 / (73 * K ** 0.5))
         runs[f"wo_matmul {name} M={M}"] = lambda x=x, w=w, ws=ws: wo.wo_matmul(x, w, ws)
 
-    def equal(a, b):
+    if only:
+        runs = {name: fn for name, fn in runs.items() if name.startswith(only)}
+
+    def compare(a, b):
+        """"equal", or max |a - b| / max |b| over the outputs."""
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
-        return all(torch.equal(x, y) for x, y in zip(a, b))
+        if all(torch.equal(x, y) for x, y in zip(a, b)):
+            return "equal"
+        return max(((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+                   for x, y in zip(a, b))
 
     first = None
     for d in list(dirs) + list(reversed(dirs)):
@@ -65,10 +94,14 @@ def main(dirs) -> int:
         times = {name: round(cs.device_ms(fn), 4) for name, fn in runs.items()}
         outs = {name: fn() for name, fn in runs.items()}
         first = first or outs
-        same = {name: equal(outs[name], first[name]) for name in runs}
-        print(f"{d}: device ms {times}; outputs equal to {dirs[0]}: {same}", flush=True)
+        same = {name: compare(outs[name], first[name]) for name in runs}
+        print(f"{d}: device ms {times}; outputs against {dirs[0]}: {same}", flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or [str(_build.CSRC)]))
+    args = sys.argv[1:]
+    only = ()
+    if args[:1] == ["--only"]:
+        only, args = tuple(args[1].split(",")), args[2:]
+    sys.exit(main(args or [str(_build.CSRC)], only))

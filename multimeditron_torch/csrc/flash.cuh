@@ -7,9 +7,10 @@
 // Causal masking keeps key j for query i when i + offset >= j (the wrapper
 // passes offset = Skv - Sq for end alignment).
 //
-// The bf16 forward for Sq >= 64 (flash_fwd.cu, flash_fwd_wgmma_kernel) works
-// on 128-row tiles with wgmma and TMA (hopper.cuh). Every other kernel works
-// on 64-row tiles of queries and keys, in two versions:
+// The bf16 forward for Sq >= 64 (flash_fwd.cu, flash_fwd_wgmma_kernel) and
+// the bf16 backward (flash_bwd.cu) work with wgmma and TMA (hopper.cuh,
+// flash_tma.cuh). The other kernels work on 64-row tiles of queries and keys,
+// in two versions:
 //
 // - float32 on the CUDA cores: 256 threads laid out 16 x 16; thread (tx, ty)
 //   owns tile rows ty + 16 * i (i < 4) and tile columns tx + 16 * j (j < 4)
@@ -17,8 +18,9 @@
 //   a 64 x D accumulator. Tiles are staged in shared memory with a row stride
 //   of D + 4 floats, so that the 16-byte loads of 8 neighbouring threads on 8
 //   different rows hit 32 different banks.
-// - bfloat16 on the tensor cores (namespace mma below): 4 warps, each owning
-//   16 rows of the tile, with mma.sync m16n8k16 products.
+// - bfloat16 on the tensor cores (namespace mma below; the forward's decode
+//   form): 4 warps, each owning 16 rows of the tile, with mma.sync m16n8k16
+//   products.
 #pragma once
 
 #include <stdint.h>

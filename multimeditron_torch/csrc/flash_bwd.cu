@@ -3,30 +3,76 @@
 // Replace the Pallas kernels `_dq_kernel` (K2a) and `_dkv_kernel` (K2b) of
 // multimeditron_tpu/ops/flash_attention.py (reached through `_flash_bwd`).
 // Both recompute the probabilities from the forward's saved base-2 logsumexp,
-// p = exp2(s * scale * log2 e - lse), with masked entries set to exactly 0 so
-// that masked keys get zero dk and dv, and take di = rowsum(o * dout), which
-// the wrapper computes as a plain tensor op beforehand (as the JAX wrapper
-// does outside Pallas). With ds = p * (dp - di) * scale and dp = dout v^T:
+// p = exp2(s * scale * log2 e - lse), with masked entries set to exactly 0 (by
+// the key mask, by causal position and for query rows past Sq) so that masked
+// keys get zero dk and dv and a row with no valid key (lse = kMaskValue) gets
+// zero dq, and take di = rowsum(o * dout), which the wrapper computes as a
+// plain tensor op beforehand (as the JAX wrapper does outside Pallas). With
+// ds = p * (dp - di) * scale and dp = dout v^T:
 //   K2a: dq = ds k
 //   K2b: dv = p^T dout and dk = ds^T q, summed over the q heads of the kv
 //        head's group and over every query tile.
 // p and ds are rounded to the input dtype before those products, as the
-// Pallas kernels cast them.
+// Pallas kernels cast them. No atomics: every sum is taken in a fixed order,
+// so both kernels are deterministic.
 //
-// What bounds them on the H100: arithmetic, as for the forward (flash_fwd.cu):
-// seven 64 x 64 x D products per pair of tiles; bf16 runs them on the tensor
-// cores with mma.sync, float32 on the CUDA cores.
+// What bounds them on the H100: arithmetic. Over the (query, key) pairs the
+// masks leave, K2a does 6 H D FLOP a pair (s, dp, dq) and K2b 8 H D (s, dp,
+// dv, dk): at the training shape (B = 1, H = 32, Hkv = 8, S = 4096, D = 128,
+// causal, keys from 3500 masked) 0.204 and 0.272 ms at the bf16 tensor-core
+// peak. Two kernels each, chosen by dtype in the C entry points:
 //
-// The design: no atomics, and every sum is taken in a fixed order, so both
-// kernels are deterministic. K2a is one block per (64-query tile, head, batch
-// row) that walks the key tiles up to the causal bound with dq in registers.
-// K2b is one block per (64-key tile, kv head, batch row); it keeps K and V in
-// shared memory and loops over the group's q heads and, for each, the query
-// tiles from the first one that can see the key tile (the Pallas kernel's
-// `first_valid` remap becomes the loop start), accumulating dk and dv in
-// registers. This is the JAX grid (B, Hkv, nk, G, nq) with its two sequential
-// dimensions turned into loops inside the block.
-#include "flash.cuh"
+// - bf16: flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, on wgmma
+//   with every tile brought in by TMA (3-D maps over (B*H, S, D) or
+//   (B*Hkv, S, D), 64-row boxes in the 128-byte swizzle, rows past S read as
+//   zeros), in K1's warp-specialised shape (flash_fwd.cu): a block of three
+//   warpgroups, whose first warp loads and folds the key mask into bits by
+//   ballot while warpgroups 1 and 2 compute. The ring of full / empty
+//   mbarriers, the mask folding and the K/V producer loop are shared with K1
+//   (flash_tma.cuh).
+//   K2b is one block per (64-key tile, kv head, batch row), the key tiles
+//   with the most causal work first. K and V come in once; then, for each q
+//   head of the group and each 64-row query tile from the first that can see
+//   the block's keys (the Pallas kernel's `first_valid` remap becomes the
+//   loop start), Q, dO, lse and di come through a 3-stage ring. The two
+//   consumer warpgroups split the work by gradient: warpgroup 1 computes
+//   S^T = K Q^T (wgmma, both operands in shared memory, K-major), p^T on its
+//   accumulators and dV += P^T dO, and hands p^T (f32) to warpgroup 2
+//   through a double-buffered shared tile; warpgroup 2 computes
+//   dP^T = V dO^T, ds^T and dK += dS^T Q. P^T and dS^T are bf16 A fragments
+//   in registers; Q and dO are read MN-major (the descriptor's transpose).
+//   Each warpgroup keeps one 64 x D f32 gradient in registers, stored once.
+//   Why the split: a warpgroup holding dK, dV, S^T and dP^T at D = 128
+//   needs about 236 registers a thread (ptxas, one consumer warpgroup beside
+//   a producer warp). Under the 232 that setmaxnreg gives each consumer of a
+//   384-thread block it spilled (912 bytes) with every wgmma serialized
+//   (note C7512): 1.79 ms at the training shape, against 0.61 ms for that
+//   single warpgroup at 236 registers and 0.53 ms for this split
+//   (kernel_ab.py, PERF.md). Both kernels keep the producer at 40 and the
+//   consumers at 232 registers: without setmaxnreg ptxas keeps them within
+//   168 (K2b at D = 128 took 159) and K2b and K2a ran 0.73 and 0.37 ms.
+//   A block whose keys are all masked stores exact zeros without a product.
+//   K2a is one block per (128-query tile, head, batch row), longest rows
+//   first; each consumer warpgroup owns 64 queries: Q and dO come in once,
+//   K and V in 64-key tiles through the ring up to the causal bound;
+//   S = Q K^T and dP = dO V^T, ds, then dQ += dS K (K MN-major), dQ in
+//   registers. A key tile whose keys are all masked or that no row of a
+//   warpgroup sees skips that warpgroup's products. Scores take exp2 on the
+//   special-function unit (ex2.approx, as K1) with the scale folded into one
+//   FMA; a warp whose rows all see every key of a tile skips the mask.
+// - float32: flash_bwd_dq_kernel and flash_bwd_dkv_kernel on the CUDA cores
+//   (TF32 would break the float32 tolerances), 64-row tiles staged in shared
+//   memory: K2a one block per (64-query tile, head, batch row) walking the
+//   key tiles, K2b one block per (64-key tile, kv head, batch row) looping
+//   over the group's q heads and their query tiles (the JAX grid
+//   (B, Hkv, nk, G, nq) with its two sequential dimensions turned into loops
+//   inside the block).
+//
+// Measured (chip_smoke.py phase 3 at the training shape, device time,
+// NVIDIA H100 80GB HBM3 at 700 W): K2a 0.3431 ms (588 TFLOP/s useful), K2b
+// 0.5324 ms (506), against 1.9878 and 2.7855 ms for the mma.sync kernels
+// they replace and 2.3420 ms for SDPA's whole backward with the same mask.
+#include "flash_tma.cuh"
 
 namespace {
 
@@ -305,51 +351,375 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores. Both kernels run 4 warps, each owning 16
-// rows of the block's 64-row tile, and take every product as mma.sync
-// m16n8k16 with f32 accumulators; p and ds go from accumulators straight into
-// bf16 A fragments. The 64 columns of a score tile are taken in two halves of
-// 32, which keeps the two score accumulators and the two 16 x D gradient
-// accumulators of K2b within the register file.
+// bf16 on wgmma + TMA (see the note at the top). Both kernels are blocks of
+// three warpgroups: warpgroup 0 loads (its first warp issues every TMA copy
+// and folds the key mask; the others leave at once), warpgroups 1 and 2
+// compute. All tiles are 64-row boxes of 64 columns in the 128-byte swizzle
+// (8 KB).
 // ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kThreads = 3 * 128;
+constexpr int kConsumerWarps = 8;
+constexpr int kBox = 64 * 128;  // one 64 x 64 bf16 box
+constexpr int kRing = 3;        // stages in flight
+
+// K2b: K and V of the block's 64 keys, a ring of (Q, dO) stages of 64 query
+// rows with their lse and di, and two f32 p^T tiles.
 template <int D>
-size_t bwd_mma_shared_bytes() {
-  return 4 * size_t(mma::Dims<D>::kTileElems) * sizeof(__nv_bfloat16) +
-         2 * kTile * sizeof(float) + kTile * sizeof(int);
+struct DkvSmem {
+  static constexpr int kTile = D / 64 * kBox;  // 64 rows x D
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kQ = kV + kTile;  // stage s: Q at kQ + s * kStage, dO after it
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kP = kQ + kRing * kStage;     // 2 x 64 x 64 floats
+  static constexpr int kRows = kP + 2 * 64 * 64 * 4;  // stage s: lse[64], di[64]
+  // full[], empty[], kv_full, p_full[2], p_empty[2]
+  static constexpr int kBars = kRows + kRing * 128 * 4;
+  static constexpr int kBits = kBars + (2 * kRing + 5) * 8;  // 2 words: the block's keys
+  static constexpr int kBytes = kBits + 8 + 1024;           // + room to align to 1024
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+// K2a: Q and dO of the block's 128 queries, then a ring of (K, V) stages of
+// 64 keys with their key bits.
+template <int D>
+struct DqSmem {
+  static constexpr int kTile = D / 64 * kBox;
+  static constexpr int kQ = 0;  // consumer c's 64 rows at kQ + c * kTile
+  static constexpr int kO = kQ + 2 * kTile;
+  static constexpr int kK = kO + 2 * kTile;  // stage s at kK + s * kTile
+  static constexpr int kV = kK + kRing * kTile;
+  static constexpr int kBars = kV + kRing * kTile;  // full[], empty[], q_full
+  static constexpr int kBits = kBars + (2 * kRing + 1) * 8;  // 2 words a stage
+  static constexpr int kBytes = kBits + kRing * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+// Descriptors of k-step kk (16 columns of D) of a 64-row tile read K-major,
+// and of k-step kk (16 rows) of a 64-row tile read MN-major (its D columns
+// are the product's N).
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+  return mmt::hopper::desc_sw128(tile + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+  return mmt::hopper::desc_sw128(tile + kk * 2048, kBox, 1024);
 }
 
-// K2a: warp rows are queries; per key tile, dq += ds k.
+// X (64 x 64, f32) = A B^T over D, both 64-row tiles K-major; one wgmma group.
 template <int D>
-__global__ void __launch_bounds__(mma::kThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        const int* __restrict__ kv_mask, __nv_bfloat16* __restrict__ dq, int H,
-                        int Hkv, int Sq, int Skv, int causal, int offset, float sm_scale,
-                        float scale_log2) {
-  using Dm = mma::Dims<D>;
-  constexpr int kKS = Dm::kKSteps, kNT = Dm::kNTiles;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + Dm::kTileElems;
-  __nv_bfloat16* ks = dos + Dm::kTileElems;
-  __nv_bfloat16* vs = ks + Dm::kTileElems;
-  int* kval = reinterpret_cast<int*>(vs + Dm::kTileElems);
+__device__ __forceinline__ void scores(float (&x)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mmt::hopper::wgmma_m64n64_ss(x, k_major(a, kk), k_major(b, kk), kk > 0);
+  mmt::hopper::wgmma_commit();
+}
 
-  const int iq = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+// acc (64 x D) += A B: A (64 x 64) from registers, B a 64-row tile MN-major.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128) {
+      mmt::hopper::wgmma_m64n128_rs(acc, a[kk], mn_major(b, kk));
+    } else {
+      mmt::hopper::wgmma_m64n64_rs(acc, a[kk], mn_major(b, kk));
+    }
+  }
+}
+
+// A fragments of a 64 x 64 accumulator, rounded to bf16.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = mma::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// Rows row0 and row0 + 8 of a 64 x D accumulator (d[4n + 2r ..] holds row
+// row0 + 8r, columns 8n + 2t, + 1) into a bf16 (n_rows, D) matrix.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[D / 2],
+                                           int row0, int n_rows, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n_rows) continue;
+    __nv_bfloat16* p = out + size_t(row) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(p + 8 * n) =
+          mma::pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+  }
+}
+
+}  // namespace wg
+
+// K2b: one block per (64-key tile, kv head, batch row). Per stage (q head h
+// of the group, 64 queries) warpgroup 1 computes S^T = K Q^T, p^T on its
+// accumulators and dV += P^T dO, and hands p^T (f32) to warpgroup 2 through
+// a double-buffered shared tile; warpgroup 2 computes dP^T = V dO^T, ds^T
+// and dK += dS^T Q. P^T, dS^T are bf16 A fragments from registers; Q and dO
+// are read MN-major. Each warpgroup keeps one 64 x D gradient in registers:
+// both in one warpgroup would not fit its 168 registers.
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ di,
+                           const int* __restrict__ kv_mask, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
+                           int causal, int offset, float sm_scale, float scale_log2) {
+  using namespace mmt::hopper;
+  using Sm = wg::DkvSmem<D>;
+  constexpr int kTile = Sm::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sm::kBars);
+  uint64_t* empty = full + wg::kRing;
+  uint64_t* kv_full = empty + wg::kRing;
+  uint64_t* p_full = kv_full + 1;  // [2]: p^T of a step written
+  uint64_t* p_empty = p_full + 2;  // [2]: p^T of a step read
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(smem + Sm::kBits);
+  float* row_vals = reinterpret_cast<float*>(smem + Sm::kRows);
+  float* p_tiles = reinterpret_cast<float*>(smem + Sm::kP);
+  const Ring ring{full, empty, wg::kRing};
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * 64;  // key tiles with the most causal work first
+  const int group = H / Hkv;
+  const int nq = (Sq + 63) / 64;
+  // the first query tile with a row that may see key k0 (causal), else 0
+  int iq0 = 0;
+  if (causal) {
+    const long long first = static_cast<long long>(k0) - offset;
+    iq0 = first <= 0 ? 0 : mmt::clamp_int(first / 64, 0, nq);
+  }
+  const int per_head = nq - iq0, n_steps = group * per_head;
+  const int lane = threadIdx.x % mmt::kWarpSize;
+
+  if (threadIdx.x == 0) {
+    ring.init(mmt::kWarpSize, wg::kConsumerWarps);
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&p_full[i], 128);
+      mbar_init(&p_empty[i], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= mmt::kWarpSize) return;
+    const int* mask_row = kv_mask == nullptr ? nullptr : kv_mask + size_t(b) * Skv;
+    uint32_t bits[2];
+    fold_key_bits(bits, mask_row, k0, Skv, lane);
+    if (lane == 0) {
+      key_bits[0] = bits[0];
+      key_bits[1] = bits[1];
+      mbar_arrive_expect_tx(kv_full, 2 * kTile);
+      for (int box = 0; box < D / 64; ++box) {
+        tma_load_3d(smem + Sm::kK + box * wg::kBox, &k_map, kv_full, box * 64, k0, b * Hkv + hk);
+        tma_load_3d(smem + Sm::kV + box * wg::kBox, &v_map, kv_full, box * 64, k0, b * Hkv + hk);
+      }
+    }
+    if ((bits[0] | bits[1]) == 0) return;  // no valid key: zeros
+    for (int t = 0; t < n_steps; ++t) {
+      const int h = hk * group + t / per_head, q0 = (iq0 + t % per_head) * 64;
+      const int s = ring.stage(t);
+      const size_t row0 = (size_t(b) * H + h) * Sq;
+      ring.wait_empty(t);
+      float* rv = row_vals + 128 * s;
+      for (int i = lane; i < 64; i += mmt::kWarpSize) {
+        const int qi = q0 + i;
+        rv[i] = qi < Sq ? lse[row0 + qi] : 0.f;
+        rv[64 + i] = qi < Sq ? di[row0 + qi] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        for (int box = 0; box < D / 64; ++box) {
+          unsigned char* st = smem + Sm::kQ + s * Sm::kStage + box * wg::kBox;
+          tma_load_3d(st, &q_map, &full[s], box * 64, q0, b * H + h);
+          tma_load_3d(st + kTile, &do_map, &full[s], box * 64, q0, b * H + h);
+        }
+      } else {
+        mbar_arrive(&full[s]);  // after this lane's lse and di
+      }
+    }
+    return;
+  }
+
+  // Consumers: warp w of a warpgroup owns keys k0 + 16w .., this thread key0
+  // and key0 + 8 (accumulator rows) and queries 8j + 2t, + 1 of a stage
+  // (columns). Warpgroup 1 (role 0) takes dV, warpgroup 2 dK.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int role = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / mmt::kWarpSize, g = lane / 4, t4 = lane % 4;
+  const int key0 = k0 + 16 * warp + g;
+  const uint32_t k_addr = smem_u32(smem + Sm::kK), v_addr = smem_u32(smem + Sm::kV);
+
+  float acc[D / 2];  // dV (role 0) or dK (role 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  const uint32_t w0 = key_bits[0], w1 = key_bits[1];
+  // this thread's two keys, and the 16 keys of its warp, valid?
+  const uint32_t wb = (warp < 2 ? w0 : w1) >> (16 * (warp & 1));
+  const bool key_ok[2] = {((wb >> g) & 1u) != 0u, ((wb >> (g + 8)) & 1u) != 0u};
+  const bool warp_keys_ok = (wb & 0xffffu) == 0xffffu;
+
+  // n_p counts the steps that ran: both warpgroups skip the same ones
+  for (int t = 0, n_p = 0; (w0 | w1) != 0 && t < n_steps; ++t) {
+    const int q0 = (iq0 + t % per_head) * 64;
+    const int s = ring.stage(t);
+    ring.wait_full(t);
+    // skip a stage none of whose queries sees a key of the block
+    if (!causal || static_cast<long long>(min(q0 + 63, Sq - 1)) + offset >= k0) {
+      const uint32_t q_addr = smem_u32(smem + Sm::kQ + s * Sm::kStage);
+      const uint32_t o_addr = q_addr + kTile;
+      const float* rv = row_vals + 128 * s;
+      const int pb = n_p & 1, p_par = (n_p >> 1) & 1;
+      // p^T of this step, float4 i of thread tid at [i][tid]: conflict-free
+      float4* pt = reinterpret_cast<float4*>(p_tiles + pb * 128 * 32) + tid;
+      float x[32];
+      uint32_t a[4][4];
+      wgmma_fence();
+      if (role == 0) {
+        wg::scores<D>(x, k_addr, q_addr);
+        // p^T = exp2(s^T * scale_log2 - lse), then 0 where masked (a select:
+        // the exponent of a row with no valid key overflows); a warp whose
+        // 16 keys are valid and seen by every query of the tile skips the mask
+        const bool whole = warp_keys_ok && q0 + 64 <= Sq &&
+                           (!causal || static_cast<long long>(q0) + offset >= k0 + 16 * warp + 15);
+        wgmma_wait<0>();
+        fence_regs(x);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& y = x[4 * j + e];
+            y = mma::exp2_approx(fmaf(y, scale_log2, -rv[8 * j + 2 * t4 + (e & 1)]));
+          }
+        if (!whole) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = q0 + 8 * j + 2 * t4 + (e & 1);
+              const bool ok = key_ok[e >> 1] && qi < Sq &&
+                              (!causal || static_cast<long long>(qi) + offset >= key0 + 8 * (e >> 1));
+              if (!ok) x[4 * j + e] = 0.f;
+            }
+        }
+        wg::to_a(a, x);
+        wgmma_fence();
+        wg::accumulate<D>(acc, a, o_addr);  // dV += P^T dO
+        wgmma_commit();
+        mbar_wait(&p_empty[pb], p_par ^ 1);  // the p^T tile of two steps back is read
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pt[128 * i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+        mbar_arrive(&p_full[pb]);
+      } else {
+        wg::scores<D>(x, v_addr, o_addr);
+        wgmma_wait<0>();
+        fence_regs(x);
+        mbar_wait(&p_full[pb], p_par);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 p = pt[128 * i];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // ds^T = p^T (dp^T - di) scale
+            x[4 * i + e] = pv[e] * (x[4 * i + e] - rv[64 + 8 * i + 2 * t4 + (e & 1)]) * sm_scale;
+        }
+        mbar_arrive(&p_empty[pb]);
+        wg::to_a(a, x);
+        wgmma_fence();
+        wg::accumulate<D>(acc, a, q_addr);  // dK += dS^T Q
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(a);
+      ++n_p;
+    }
+    ring.release(t, lane);
+  }
+
+  const size_t krow0 = (size_t(b) * Hkv + hk) * Skv;
+  wg::store_rows<D>((role == 0 ? dv : dk) + krow0 * D, acc, key0, Skv, t4);
+}
+
+// K2a: one block per (128-query tile, head, batch row); warpgroup c owns
+// queries q0 + 64 (c - 1) ... Per 64-key stage: S = Q K^T and dP = dO V^T,
+// ds on the accumulators, then dQ += dS K with dS from registers and K read
+// MN-major. dQ stays in registers.
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ di,
+                          const int* __restrict__ kv_mask, __nv_bfloat16* __restrict__ dq, int H,
+                          int Hkv, int Sq, int Skv, int causal, int offset, float sm_scale,
+                          float scale_log2) {
+  using namespace mmt::hopper;
+  using Sm = wg::DqSmem<D>;
+  constexpr int kTile = Sm::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sm::kBars);
+  uint64_t* empty = full + wg::kRing;
+  uint64_t* q_full = empty + wg::kRing;
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(smem + Sm::kBits);
+  const Ring ring{full, empty, wg::kRing};
+
+  const int iq = gridDim.z - 1 - blockIdx.z;  // the longest causal rows start first
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x / mmt::kWarpSize, lane = threadIdx.x % mmt::kWarpSize;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = iq * kTile;
-  const size_t qrow0 = (size_t(b) * H + h) * Sq;
-  const __nv_bfloat16* kh = k + (size_t(b) * Hkv + hk) * Skv * D;
-  const __nv_bfloat16* vh = v + (size_t(b) * Hkv + hk) * Skv * D;
-  const int* mask_row = kv_mask == nullptr ? nullptr : kv_mask + size_t(b) * Skv;
+  const int q0 = iq * 128;
+  const int n_tiles = kv_tiles(min(q0 + 128, Sq) - 1, Skv, causal, offset, 64);
+  const int lane = threadIdx.x % mmt::kWarpSize;
 
-  mma::load_tile<D>(qs, q + qrow0 * D, q0, Sq);
-  mma::load_tile<D>(dos, dout + qrow0 * D, q0, Sq);
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  if (threadIdx.x == 0) {
+    ring.init(1, wg::kConsumerWarps);
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= mmt::kWarpSize) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 4 * kTile);
+      for (int half = 0; half < 2; ++half)
+        for (int box = 0; box < D / 64; ++box) {
+          const int at = half * kTile + box * wg::kBox;
+          tma_load_3d(smem + Sm::kQ + at, &q_map, q_full, box * 64, q0 + 64 * half, b * H + h);
+          tma_load_3d(smem + Sm::kO + at, &do_map, q_full, box * 64, q0 + 64 * half, b * H + h);
+        }
+    }
+    const int* mask_row = kv_mask == nullptr ? nullptr : kv_mask + size_t(b) * Skv;
+    produce_kv_tiles<D, 64>(ring, n_tiles, &k_map, &v_map, smem + Sm::kK, smem + Sm::kV,
+                            key_bits, mask_row, Skv, b * Hkv + hk, lane);
+    return;
+  }
+
+  // Consumers: warpgroup c owns queries q0 + 64c ..; warp w of it rows
+  // 16w .., this thread row0 and row0 + 8.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x / mmt::kWarpSize) % 4;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wg_row = q0 + 64 * c, warp_row = wg_row + 16 * warp, row0 = warp_row + g;
+  const size_t qrow0 = (size_t(b) * H + h) * Sq;
   float lse_r[2], di_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -357,213 +727,67 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     lse_r[r] = qi < Sq ? lse[qrow0 + qi] : 0.f;
     di_r[r] = qi < Sq ? di[qrow0 + qi] : 0.f;
   }
-  float acc[kNT][4];
+  const uint32_t q_addr = smem_u32(smem + Sm::kQ + c * kTile);
+  const uint32_t o_addr = smem_u32(smem + Sm::kO + c * kTile);
+  // the last key this warpgroup's rows may see; none when all its rows are padding
+  const long long wg_last = wg_row >= Sq ? -1
+                            : causal    ? static_cast<long long>(min(wg_row + 63, Sq - 1)) + offset
+                                        : Skv;
+  float dq_acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  mbar_wait(q_full, 0);
 
-  const int n_tiles = kv_tiles(min(q0 + kTile, Sq) - 1, Skv, causal, offset);
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    mma::load_tile<D>(ks, kh, k0, Skv);
-    mma::load_tile<D>(vs, vh, k0, Skv);
-    load_key_valid(kval, mask_row, k0, Skv);
-    __syncthreads();
+    const int s = ring.stage(t), k0 = t * 64;
+    ring.wait_full(t);
+    const uint32_t b0 = key_bits[2 * s], b1 = key_bits[2 * s + 1];
+    // skip a tile whose keys are all masked or that no row of this warpgroup sees
+    if ((b0 | b1) != 0 && wg_last >= k0) {
+      const uint32_t k_addr = smem_u32(smem + Sm::kK + s * kTile);
+      const uint32_t v_addr = smem_u32(smem + Sm::kV + s * kTile);
+      float sc[32], dp[32];
+      wgmma_fence();
+      wg::scores<D>(sc, q_addr, k_addr);
+      wg::scores<D>(dp, o_addr, v_addr);
 
+      // p = exp2(s * scale_log2 - lse), then 0 where masked (a select: the
+      // exponent of a row with no valid key overflows); a warp whose 16 rows
+      // exist and see every key of the tile skips the mask
+      const bool whole = (b0 & b1) == 0xffffffffu && warp_row + 16 <= Sq &&
+                         (!causal || static_cast<long long>(warp_row) + offset >= k0 + 63);
+      wgmma_wait<1>();
+      fence_regs(sc);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;  // first key of this half within the tile
-      float s[4][4], dp[4][4];
+      for (int i = 0; i < 32; ++i)
+        sc[i] = mma::exp2_approx(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
+      if (!whole) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKS; ++kk) {
-        uint32_t qa[4], oa[4];
-        mma::load_a<D>(qa, qs, warp * 16, kk * 16, lane);
-        mma::load_a<D>(oa, dos, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t kb[4], vb[4];
-          mma::load_b_nk<D>(kb, ks, c0 + np * 16, kk * 16, lane);
-          mma::load_b_nk<D>(vb, vs, c0 + np * 16, kk * 16, lane);
-          mma::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-          mma::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-          mma::mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
-          mma::mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = c0 + 8 * j + 2 * t4 + (e & 1);
-          const int qi = row0 + 8 * (e >> 1);
-          const bool ok = qi < Sq && kval[kj] &&
-                          (!causal || static_cast<long long>(qi) + offset >= k0 + kj);
-          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_r[e >> 1]) : 0.f;
-          s[j][e] = p * (dp[j][e] - di_r[e >> 1]) * sm_scale;  // ds
-        }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {  // 16 keys per k-step
-        uint32_t da[4];
-        mma::accum_to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int dpi = 0; dpi < D / 16; ++dpi) {
-          uint32_t kb[4];
-          mma::load_b_kn<D>(kb, ks, c0 + kk * 16, dpi * 16, lane);
-          mma::mma_bf16(acc[2 * dpi], da, kb[0], kb[1]);
-          mma::mma_bf16(acc[2 * dpi + 1], da, kb[2], kb[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = row0 + 8 * r;
-    if (qi >= Sq) continue;
-    __nv_bfloat16* out = dq + (qrow0 + qi) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-      *reinterpret_cast<uint32_t*>(out + 8 * n) = mma::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
-}
-
-// K2b: warp rows are keys; per query tile, dv += p^T dout and dk += ds^T q.
-template <int D>
-__global__ void __launch_bounds__(mma::kThreads)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ di, const int* __restrict__ kv_mask,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
-                         int Hkv, int Sq, int Skv, int causal, int offset, float sm_scale,
-                         float scale_log2) {
-  using Dm = mma::Dims<D>;
-  constexpr int kKS = Dm::kKSteps, kNT = Dm::kNTiles;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + Dm::kTileElems;
-  __nv_bfloat16* qs = vs + Dm::kTileElems;
-  __nv_bfloat16* dos = qs + Dm::kTileElems;
-  float* lse_s = reinterpret_cast<float*>(dos + Dm::kTileElems);
-  float* di_s = lse_s + kTile;
-  int* kval = reinterpret_cast<int*>(di_s + kTile);
-
-  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int group = H / Hkv;
-  const int warp = threadIdx.x / mmt::kWarpSize, lane = threadIdx.x % mmt::kWarpSize;
-  const int g = lane / 4, t4 = lane % 4;
-  const int k0 = ik * kTile;
-  const size_t krow0 = (size_t(b) * Hkv + hk) * Skv;
-  const int* mask_row = kv_mask == nullptr ? nullptr : kv_mask + size_t(b) * Skv;
-
-  mma::load_tile<D>(ks, k + krow0 * D, k0, Skv);
-  mma::load_tile<D>(vs, v + krow0 * D, k0, Skv);
-  load_key_valid(kval, mask_row, k0, Skv);
-  const int key0 = warp * 16 + g;  // this thread's key rows in the tile: key0 and key0 + 8
-
-  float dk_acc[kNT][4], dv_acc[kNT][4];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int nq = (Sq + kTile - 1) / kTile;
-  int iq0 = 0;
-  if (causal) {
-    const long long first = static_cast<long long>(k0) - offset;
-    iq0 = first <= 0 ? 0 : mmt::clamp_int(first / kTile, 0, nq);
-  }
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const size_t qrow0 = (size_t(b) * H + h) * Sq;
-    for (int iq = iq0; iq < nq; ++iq) {
-      const int q0 = iq * kTile;
-      __syncthreads();  // the previous tile's Q and dO are no longer read
-      mma::load_tile<D>(qs, q + qrow0 * D, q0, Sq);
-      mma::load_tile<D>(dos, dout + qrow0 * D, q0, Sq);
-      if (threadIdx.x < kTile) {
-        const int qi = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qi < Sq ? lse[qrow0 + qi] : 0.f;
-        di_s[threadIdx.x] = qi < Sq ? di[qrow0 + qi] : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c0 = 32 * half;  // first query of this half within the tile
-        float st[4][4], dpt[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kKS; ++kk) {
-          uint32_t ka[4], va[4];
-          mma::load_a<D>(ka, ks, warp * 16, kk * 16, lane);
-          mma::load_a<D>(va, vs, warp * 16, kk * 16, lane);
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t qb[4], ob[4];
-            mma::load_b_nk<D>(qb, qs, c0 + np * 16, kk * 16, lane);
-            mma::load_b_nk<D>(ob, dos, c0 + np * 16, kk * 16, lane);
-            mma::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
-            mma::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
-            mma::mma_bf16(dpt[2 * np], va, ob[0], ob[1]);
-            mma::mma_bf16(dpt[2 * np + 1], va, ob[2], ob[3]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int qc = c0 + 8 * j + 2 * t4 + (e & 1);
-            const int kr = key0 + 8 * (e >> 1);
-            const int qi = q0 + qc;
-            const bool ok = qi < Sq && kval[kr] &&
-                            (!causal || static_cast<long long>(qi) + offset >= k0 + kr);
-            const float p = ok ? exp2f(st[j][e] * scale_log2 - lse_s[qc]) : 0.f;
-            st[j][e] = p;
-            dpt[j][e] = p * (dpt[j][e] - di_s[qc]) * sm_scale;  // ds^T
+            const int col = 8 * j + 2 * t4 + (e & 1), qi = row0 + 8 * (e >> 1);
+            const bool ok = (((j < 4 ? b0 : b1) >> (col & 31)) & 1u) != 0u && qi < Sq &&
+                            (!causal || static_cast<long long>(qi) + offset >= k0 + col);
+            if (!ok) sc[4 * j + e] = 0.f;
           }
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {  // 16 queries per k-step
-          uint32_t pa[4], da[4];
-          mma::accum_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-          mma::accum_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-          for (int dpi = 0; dpi < D / 16; ++dpi) {
-            uint32_t ob[4], qb[4];
-            mma::load_b_kn<D>(ob, dos, c0 + kk * 16, dpi * 16, lane);
-            mma::load_b_kn<D>(qb, qs, c0 + kk * 16, dpi * 16, lane);
-            mma::mma_bf16(dv_acc[2 * dpi], pa, ob[0], ob[1]);
-            mma::mma_bf16(dv_acc[2 * dpi + 1], pa, ob[2], ob[3]);
-            mma::mma_bf16(dk_acc[2 * dpi], da, qb[0], qb[1]);
-            mma::mma_bf16(dk_acc[2 * dpi + 1], da, qb[2], qb[3]);
-          }
-        }
       }
-    }
-  }
-
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + key0 + 8 * r;
-    if (key >= Skv) continue;
-    __nv_bfloat16* dkr = dk + (krow0 + key) * D + 2 * t4;
-    __nv_bfloat16* dvr = dv + (krow0 + key) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      *reinterpret_cast<uint32_t*>(dkr + 8 * n) =
-          mma::pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvr + 8 * n) =
-          mma::pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - di_r[(i >> 1) & 1]) * sm_scale;  // ds
+      uint32_t da[4][4];
+      wg::to_a(da, dp);
+      wgmma_fence();
+      wg::accumulate<D>(dq_acc, da, k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(da);
     }
+    ring.release(t, lane);
   }
+  wg::store_rows<D>(dq + qrow0 * D, dq_acc, row0, Sq, t4);
 }
 
 template <typename Kernel>
@@ -603,36 +827,49 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 template <int D>
-int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* di, const int* kv_mask, void* dq, int B, int H,
-                  int Hkv, int Sq, int Skv, int causal, int offset, float sm_scale,
-                  cudaStream_t stream) {
-  const size_t smem = bwd_mma_shared_bytes<D>();
-  cudaError_t err = allow_shared(flash_bwd_dq_mma_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  using bf16 = __nv_bfloat16;
-  flash_bwd_dq_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, di, kv_mask, static_cast<bf16*>(dq), H, Hkv, Sq, Skv,
-      causal, offset, sm_scale, sm_scale * kLog2e);
+int make_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+              const void* dout, int B, int H, int Hkv, int Sq, int Skv) {
+  int err = mmt::hopper::make_bf16_map(&maps[0], q, B * H, Sq, D, 64);
+  if (err == 0) err = mmt::hopper::make_bf16_map(&maps[1], k, B * Hkv, Skv, D, 64);
+  if (err == 0) err = mmt::hopper::make_bf16_map(&maps[2], v, B * Hkv, Skv, D, 64);
+  if (err == 0) err = mmt::hopper::make_bf16_map(&maps[3], dout, B * H, Sq, D, 64);
+  return err;
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* di, const int* kv_mask, void* dq, int B, int H,
+                    int Hkv, int Sq, int Skv, int causal, int offset, float sm_scale,
+                    cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const int err = make_maps<D>(maps, q, k, v, dout, B, H, Hkv, Sq, Skv);
+  if (err != 0) return err;
+  const int smem = wg::DqSmem<D>::kBytes;
+  const cudaError_t e = allow_shared(flash_bwd_dq_wgmma_kernel<D>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(H, B, (Sq + 127) / 128);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, di, kv_mask, static_cast<__nv_bfloat16*>(dq), H,
+      Hkv, Sq, Skv, causal, offset, sm_scale, sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, const int* kv_mask, void* dk, void* dv,
-                   int B, int H, int Hkv, int Sq, int Skv, int causal, int offset,
-                   float sm_scale, cudaStream_t stream) {
-  const size_t smem = bwd_mma_shared_bytes<D>();
-  cudaError_t err = allow_shared(flash_bwd_dkv_mma_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
-  using bf16 = __nv_bfloat16;
-  flash_bwd_dkv_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, di, kv_mask, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Hkv, Sq, Skv, causal, offset, sm_scale, sm_scale * kLog2e);
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* di, const int* kv_mask, void* dk, void* dv,
+                     int B, int H, int Hkv, int Sq, int Skv, int causal, int offset,
+                     float sm_scale, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const int err = make_maps<D>(maps, q, k, v, dout, B, H, Hkv, Sq, Skv);
+  if (err != 0) return err;
+  const int smem = wg::DkvSmem<D>::kBytes;
+  const cudaError_t e = allow_shared(flash_bwd_dkv_wgmma_kernel<D>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(Hkv, B, (Skv + 63) / 64);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, di, kv_mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Skv, causal, offset, sm_scale,
+      sm_scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,7 +889,7 @@ extern "C" int mmt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   const int* mask = static_cast<const int*>(kv_mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    MMT_DISPATCH_HEAD_DIM(D, return launch_dq_mma<kD>(q, k, v, dout, lse_f, di_f, mask, dq, B, H,
+    MMT_DISPATCH_HEAD_DIM(D, return launch_dq_wgmma<kD>(q, k, v, dout, lse_f, di_f, mask, dq, B, H,
                                                       Hkv, Sq, Skv, causal, offset, sm_scale, st));
   if (dtype == 0)
     MMT_DISPATCH_HEAD_DIM(D, return launch_dq<kD>(q, k, v, dout, lse_f, di_f, mask, dq, B,
@@ -671,7 +908,7 @@ extern "C" int mmt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const int* mask = static_cast<const int*>(kv_mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    MMT_DISPATCH_HEAD_DIM(D, return launch_dkv_mma<kD>(q, k, v, dout, lse_f, di_f, mask, dk, dv, B,
+    MMT_DISPATCH_HEAD_DIM(D, return launch_dkv_wgmma<kD>(q, k, v, dout, lse_f, di_f, mask, dk, dv, B,
                                                        H, Hkv, Sq, Skv, causal, offset, sm_scale,
                                                        st));
   if (dtype == 0)

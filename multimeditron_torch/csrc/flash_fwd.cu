@@ -20,7 +20,8 @@
 //   TMA (3-D tensor maps over (B*H, S, D), 128-byte swizzle, rows past S read
 //   as zeros) into a 3-stage ring of shared-memory tiles guarded by full and
 //   empty mbarriers, together with the tile's valid keys as 128 bits (key <
-//   Skv and not masked); it gives registers up with setmaxnreg. Warpgroups 1
+//   Skv and not masked; the producer loop and the ring are flash_tma.cuh's,
+//   shared with K2a); it gives registers up with setmaxnreg. Warpgroups 1
 //   and 2 each own 64 query rows: S = Q K^T is one wgmma m64n128k16 chain
 //   with both operands in shared memory; the softmax runs on S's registers
 //   (a tile where every key is valid and every row of the warp sees every key
@@ -50,8 +51,7 @@
 // 3500 masked, NVIDIA H100 80GB HBM3 at 700 W): the wgmma kernel 0.454 ms
 // on the device, 296 TFLOP/s, against SDPA's 0.852 with the same mask; the
 // mma.sync kernel it replaced at this shape took 1.0010 ms.
-#include "flash.cuh"
-#include "hopper.cuh"
+#include "flash_tma.cuh"
 
 namespace {
 
@@ -410,11 +410,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int n_tiles = kv_tiles(min(q0 + wg::kRows, Sq) - 1, Skv, causal, offset, wg::kKeys);
   const int lane = threadIdx.x % mmt::kWarpSize;
 
+  const Ring ring{full, empty, wg::kStages};
   if (threadIdx.x == 0) {
-    for (int s = 0; s < wg::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], wg::kConsumerWarps);
-    }
+    ring.init(1, wg::kConsumerWarps);
     mbar_init(q_full, 1);
     fence_barrier_init();
   }
@@ -432,30 +430,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                       b * H + h);
     }
     const int* mask_row = kv_mask == nullptr ? nullptr : kv_mask + size_t(b) * Skv;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % wg::kStages, k0 = t * wg::kKeys;
-      // the tile's valid keys as 128 bits: in range and not masked
-      uint32_t bits[kWords];
-#pragma unroll
-      for (int i = 0; i < kWords; ++i) {
-        const int key = k0 + 32 * i + lane;
-        bits[i] = __ballot_sync(0xffffffffu,
-                                key < Skv && (mask_row == nullptr || mask_row[key] != 0));
-      }
-      mbar_wait(&empty[s], ((t / wg::kStages) & 1) ^ 1);
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < kWords; ++i) key_bits[4 * s + i] = bits[i];
-        mbar_arrive_expect_tx(&full[s], 2 * Sm::kTileBytes);
-        for (int box = 0; box < Sm::kBoxes; ++box) {
-          tma_load_3d(smem + Sm::kK + s * Sm::kTileBytes + box * wg::kBoxBytes, &k_map, &full[s],
-                      box * 64, k0, b * Hkv + hk);
-          tma_load_3d(smem + Sm::kV + s * Sm::kTileBytes + box * wg::kBoxBytes, &v_map, &full[s],
-                      box * 64, k0, b * Hkv + hk);
-        }
-      }
-      __syncwarp();
-    }
+    produce_kv_tiles<D, wg::kKeys>(ring, n_tiles, &k_map, &v_map, smem + Sm::kK, smem + Sm::kV,
+                                   key_bits, mask_row, Skv, b * Hkv + hk, lane);
     return;
   }
 
@@ -480,8 +456,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // S = Q K^T for tile t, both operands K-major in shared memory, 16 columns
   // of D a step; committed as one wgmma group.
   auto start_qk = [&](int t) {
-    const int s = t % wg::kStages;
-    mbar_wait(&full[s], (t / wg::kStages) & 1);
+    const int s = ring.stage(t);
+    ring.wait_full(t);
     const uint32_t k_addr = smem_u32(smem + Sm::kK + s * Sm::kTileBytes);
     wgmma_fence();
 #pragma unroll
@@ -497,22 +473,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // tensor cores run one while this warpgroup waits for the other.
   if (n_tiles > 0) start_qk(0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % wg::kStages, k0 = t * wg::kKeys;
+    const int s = ring.stage(t), k0 = t * wg::kKeys;
     wgmma_wait<0>();  // S of tile t, and O += P V of tile t - 1
     fence_regs(sc);
     fence_regs(acc);
     fence_regs(pa);  // read by tile t - 1's P V until here
-    if (t > 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(t - 1) % wg::kStages]);
-    }
+    if (t > 0) ring.release(t - 1, lane);
 
     // Masked scores; a tile where every key is valid and (causal) every row
     // of this warp sees every key needs no mask. The scale folds into the
     // exponent: p = exp2(s * scale_log2 - m), m the running max in base 2.
     uint32_t tb[kWords], all = 0xffffffffu;
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) all &= tb[i] = key_bits[4 * s + i];
+    for (int i = 0; i < kWords; ++i) all &= tb[i] = key_bits[kWords * s + i];
     const bool whole = all == 0xffffffffu &&
                        (!causal || static_cast<long long>(warp_row) + offset >= k0 + kN - 1);
     float mx[2] = {-INFINITY, -INFINITY};

@@ -220,6 +220,23 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// As above with N = 64 (the backward's 64-wide score tiles); d[4j + e] holds
+// row 16w + g + 8 (e / 2), column 8j + 2t + e % 2, j < 8.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MMT_WGMMA_D16(0), MMT_WGMMA_D16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D (64 x 128) += A (64 x 16, registers: the mma.m16n8k16 A fragment of each
 // warp's 16 rows) B (16 x 128, shared, MN-major).
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t (&a)[4],

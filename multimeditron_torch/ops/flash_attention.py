@@ -15,8 +15,11 @@ form, Sq = 1) on ``mma.sync`` (64-row tiles), in float32 on the CUDA cores.
 The C entry point chooses by dtype and rows; each call counts as one K1
 launch. Its backward computes ``di = rowsum(o * do)`` as a plain op, as the
 JAX wrapper does, then launches K2a (dq) and K2b (dk, dv) from
-``csrc/flash_bwd.cu``: bf16 on the tensor cores (``mma.sync``), float32 on
-the CUDA cores. On a CPU tensor both directions run the plain twins
+``csrc/flash_bwd.cu``: bf16 on ``wgmma`` with every tile brought in by TMA
+(K2a: 128-query blocks over 64-key tiles; K2b: 64-key blocks over 64-query
+tiles, dV and dK in two warpgroups), float32 on the CUDA cores; the C entry
+points choose by dtype, and both are deterministic (no atomics). On a CPU
+tensor both directions run the plain twins
 ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain``, which are
 written from the kernels' math. Any other device, dtype, head dim or layout
 raises.

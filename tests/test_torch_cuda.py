@@ -12,7 +12,10 @@ that see no key of a split, int8 kernels at ragged row counts, S = 257 and
 196, drowned attention rows, every consume path of K7g and each output type
 of K7b, K7c with a float o, K7f against the split pair, K10, the fused tower
 under every calibration shape, K9 at ragged N and M, split K and both tile
-heights, and a quantised decoder on the card against the CPU. Gradients are
+heights, a quantised decoder on the card against the CPU, the flash
+backward at the edges of its tiles (Sq and Skv of 1, 17, 64, 127, 129 and
+1,000, a 128-key tile masked, the training layout at 1,024 rows) and its
+determinism (two runs bitwise equal). Gradients are
 compared relative to the largest gradient value (they are not of order 1):
 f32 1e-4, bf16 2e-2. Float attention outputs are held max-abs as the other
 float kernels (f32 1e-4, bf16 2e-2, outputs of order 1): their P.V and
@@ -322,6 +325,18 @@ FLASH_CASES = [
     (2, 4, 1, 300, 300, 64, False, None, "right"),
     (2, 8, 2, 333, 517, 128, False, None, "holes"),
     (1, 4, 4, 333, 517, 64, True, None, "left"),       # end-aligned, rows with no valid key
+    # the edges of the backward's tiles (64-row query stages, 128-key blocks
+    # in K2b; 128-query blocks, 64-key stages in K2a) at GQA groups 1, 4, 8
+    (1, 4, 4, 1, 1, 128, True, None, None),            # one query, one key
+    (1, 8, 2, 1, 1000, 64, False, None, "right"),      # a decode row over 1,000 keys
+    (2, 8, 1, 17, 17, 128, True, None, None),
+    (1, 8, 2, 17, 1000, 64, True, None, "tail"),       # end-aligned, masked key tiles
+    (1, 4, 1, 64, 127, 128, True, None, "holes"),
+    (1, 8, 8, 127, 129, 64, False, None, None),
+    (2, 8, 1, 129, 64, 128, True, 0, None),            # Sq > Skv, explicit offset
+    (1, 16, 4, 1000, 1000, 128, True, None, "right"),
+    (1, 4, 1, 300, 520, 128, True, None, "tile"),      # a 128-key tile entirely masked
+    (1, 32, 8, 1024, 1024, 128, True, None, "tail"),   # the training layout, reduced length
 ]
 
 
@@ -337,6 +352,10 @@ def _flash_case(gen, dtype, B, H, Hkv, Sq, Skv, D, mask):
             kv_mask[:, : Skv // 2] = 0
         elif mask == "right":
             kv_mask[:, Skv - 37:] = 0
+        elif mask == "tail":  # right padding from 27/32 of the keys on
+            kv_mask[:, Skv * 27 // 32:] = 0
+        elif mask == "tile":
+            kv_mask[:, 128:256] = 0
         else:
             kv_mask[:, 3:9] = 0
             kv_mask[:, 70:] = 0
@@ -393,6 +412,24 @@ def test_flash_backward_kernels_on_kernel_forward(gen, dtype, case):
                                         causal_offset=off)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= GRAD_TOL[dtype]
+    if kv_mask is not None:  # masked keys get exactly zero dk and dv
+        dead = (kv_mask == 0)[:, None, :, None].expand_as(got[1])
+        assert not got[1][dead].any() and not got[2][dead].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_are_deterministic(gen, dtype):
+    """K2a and K2b sum in a fixed order (no atomics): two runs on the same
+    inputs give bitwise-equal dq, dk and dv."""
+    B, H, Hkv, S, D = 1, 32, 8, 1024, 128
+    q, k, v, kv_mask = _flash_case(gen, dtype, B, H, Hkv, S, S, D, "tail")
+    o, lse = fl._fwd_kernel(q, k, v, kv_mask, True, D ** -0.5, 0)
+    do = torch.randn(o.shape, generator=gen, device="cuda", dtype=dtype)
+    first = fl._bwd_kernel(q, k, v, kv_mask, o, lse, do, True, D ** -0.5, 0)
+    second = fl._bwd_kernel(q, k, v, kv_mask, o, lse, do, True, D ** -0.5, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_attention_dispatch_runs_flash_with_autograd(gen):
