@@ -8,7 +8,9 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA device must be present; prints nvidia-smi's name and
    power limit;
-2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/;
+2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/,
+   and prints what ptxas reports for K7d's and K7e's kernels (registers,
+   spills);
 3. kernels: each kernel (K3 encoder attention and its gradient at the
    serving batch, and in bf16 at the encode batch of 256 images beside SDPA's
    device time; K4 ring decode attention, K8 paged decode attention (the
@@ -22,7 +24,9 @@ Phases, each of which raises on failure (non-zero exit):
    ln_quant, K7g qkv_attn_int8 in each consume path: int8 out, float out,
    static stabiliser without fuse_l, row max; K7b qkv_int8 with bf16 and int8
    outputs, K7c oproj_ln_quant with an int8 and a bf16 o, K7d fc1_gelu_quant,
-   K7e fc2_res_ln_quant, K7f mlp_fused, also against the split pair, and K10
+   K7e fc2_res_ln_quant, K7f mlp_fused, also against the split pair (x''
+   bitwise, the int8 row within the int8 tolerance: K7e's LayerNorm sums
+   run in another order than K7f's), and K10
    encoder_attention_int8) at the ViT-L/14 serving shape (8 images,
    M = 2,056 rows) and encode shape (256 images, M = 65,792). Each with
    CUDA-event timings around the wrapper, its device time from
@@ -195,10 +199,10 @@ KERNELS = {
         module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:128"),
     "fc1_gelu_quant": dict(
-        module=v8, source="multimeditron_torch/csrc/vit_int8_gemm.cu",
+        module=v8, source="multimeditron_torch/csrc/vit_int8_fc1.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:145"),
     "fc2_res_ln_quant": dict(
-        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        module=v8, source="multimeditron_torch/csrc/vit_int8_fc2.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:166"),
     "wo_matmul": dict(
         module=wo, source="multimeditron_torch/csrc/wo_matmul.cu",
@@ -260,6 +264,11 @@ LM_HEAD_8B = (4096, 128256)
 K9_PER_STEP = 4 * 32 + 1
 W8A8_PER_PREFILL = 4 * 32
 
+
+# sources whose kernels' registers and spills phase 2 prints (-Xptxas -v;
+# the wgmma kernels report 168 registers, the count at launch: their
+# consumers' setmaxnreg budget is 232)
+PTXAS_REPORTED = ("vit_int8_fc1.cu", "vit_int8_fc2.cu")
 
 T_START = time.perf_counter()
 
@@ -982,8 +991,11 @@ def check_int8_kernels(gen, B: int) -> dict:
     (xo, xq), (xo_ref, xq_ref), (xo_pair, xq_pair) = run(), plain(), split_pair()
     check_ulp(f"mlp_fused x'' {tag}", xo, xo_ref)
     err = check_int8(f"mlp_fused xq {tag}", xq, xq_ref)
-    if not (torch.equal(xo, xo_pair) and torch.equal(xq, xq_pair)):
-        raise AssertionError("K7f differs from the split pair K7d + K7e on the card")
+    # x'' is the same arithmetic in both; K7e's LayerNorm sums run in
+    # another order than K7f's, so xq is held to the int8 tolerance
+    if not torch.equal(xo, xo_pair):
+        raise AssertionError("K7f's x'' differs from the split pair K7d + K7e on the card")
+    check_int8(f"mlp_fused xq against the split pair {tag}", xq, xq_pair)
     w2t = c["w2"].t()
     record("mlp_fused", err, run, plain,
            lambda: (torch._int_mm(c["o8"], w1t), torch._int_mm(c["h8"], w2t)),
@@ -2151,6 +2163,13 @@ def main() -> int:
             else f"nvcc {_build.build_seconds:.1f} s")
     phase(f"[2] build: {time.perf_counter() - t0:.1f} s ({nvcc}) -> "
         f"{_build.library_path().relative_to(_build.BUILD_DIR.parent.parent)}")
+    for source in PTXAS_REPORTED:
+        report = _build.ptxas_report(source)
+        for k in report["kernels"]:
+            log(f"  ptxas -v {source}: {k['entry']}: {k['registers']} registers, "
+                f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes spill loads")
+        for line in report["warnings"]:
+            log(f"  ptxas -v {source}: {line}")
 
     phase("[3] kernels vs plain twins (times: median of 20 calls, of 10 for flash; ms)")
     gen = torch.Generator(device="cuda").manual_seed(0)

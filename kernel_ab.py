@@ -10,7 +10,11 @@ Llama-3.1-8B decode shapes (M = 8) and the W8A16 prefill's gate-up
     python3 kernel_ab.py [--only NAME[,NAME...]] [SOURCE_DIR ...]
 
 Each SOURCE_DIR holds a copy of ``multimeditron_torch/csrc`` (default: that
-directory alone); every tree is built into its own library. The trees run in
+directory alone); every tree is built into its own library. A tree older
+than K7e's own entry point
+(``mmt_int8_fc2_res_ln_quant``) runs K7e through the entry it had then,
+``mmt_int8_res_ln_quant``. K7d and K7e also run at the serving shape (8
+images, M = 2,056). The trees run in
 turns, forward then backward (A, B, B, A), each timed by its kernels' device
 time from torch.profiler, and every tree's outputs are compared with the
 first tree's: equal, or the largest difference relative to the largest
@@ -20,6 +24,7 @@ prefixes (e.g. ``--only flash``).
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
 import sys
 
@@ -46,28 +51,61 @@ def flash_runs(gen) -> dict:
             "flash K2b": lambda: fl._dkv_kernel(*bwd)}
 
 
+# entry points that a newer tree has and an older one reached under another name
+OLDER_ENTRIES = {"mmt_int8_fc2_res_ln_quant": "mmt_int8_res_ln_quant"}
+
+
+def load_tree(d: str):
+    """Build and load the kernel tree in directory ``d``."""
+    _build.CSRC, _build._lib = pathlib.Path(d).resolve(), None
+    out = _build.library_path()
+    if not out.exists():
+        _build._compile(out)
+    missing = {n: o for n, o in OLDER_ENTRIES.items() if not hasattr(ctypes.CDLL(str(out)), n)}
+    signatures = dict(_build.SIGNATURES)
+    for name in missing:
+        del _build.SIGNATURES[name]
+    try:
+        lib = _build.library()
+    finally:
+        _build.SIGNATURES.clear()
+        _build.SIGNATURES.update(signatures)
+    for name, older in missing.items():
+        setattr(lib, name, getattr(lib, older))
+    return lib
+
+
+def int8_runs(B: int, tag: str = "") -> dict:
+    """The K7 kernels at B images of the ViT-L/14 shape (K7c and K7g at the
+    encode shape only)."""
+    c = cs.int8_case(torch.Generator(device="cuda").manual_seed(0), B)
+    runs = {
+        f"fc1_gelu_quant{tag}": lambda: v8.fc1_gelu_quant(c["o8"], c["w1"], c["w1_s"], c["bF"],
+                                                          1.1, 0.04, "quick_gelu_approx"),
+        f"fc2_res_ln_quant{tag}": lambda: v8.fc2_res_ln_quant(c["h8"], c["x"], c["w2"],
+                                                              c["w2_s"], c["bD"], c["lnw"],
+                                                              c["lnb"], 1.3, 0.025, 1e-5),
+    }
+    if not tag:
+        runs.update({
+            "qkv_attn_int8": lambda: v8.qkv_attn_int8(c["xq"], c["wqkv"], c["wqkv_s"],
+                                                      c["qkv_b"], c["scales6"], 16, 257),
+            "oproj_ln_quant": lambda: v8.oproj_ln_quant(c["o8"], c["x"], c["wo"], c["wo_s"],
+                                                        c["bD"], c["lnw"], c["lnb"], 1.3, 0.025,
+                                                        1e-5),
+        })
+    return runs
+
+
 def main(dirs, only=()) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    libs = {}
-    for d in dirs:
-        _build.CSRC, _build._lib = pathlib.Path(d).resolve(), None
-        libs[d] = _build.library()
+    libs = {d: load_tree(d) for d in dirs}
     _build._lib = libs[dirs[0]]
     runs = flash_runs(torch.Generator(device="cuda").manual_seed(2))
-    c = cs.int8_case(torch.Generator(device="cuda").manual_seed(0), 256)
-    runs.update({
-        "qkv_attn_int8": lambda: v8.qkv_attn_int8(c["xq"], c["wqkv"], c["wqkv_s"], c["qkv_b"],
-                                                  c["scales6"], 16, 257),
-        "oproj_ln_quant": lambda: v8.oproj_ln_quant(c["o8"], c["x"], c["wo"], c["wo_s"], c["bD"],
-                                                    c["lnw"], c["lnb"], 1.3, 0.025, 1e-5),
-        "fc1_gelu_quant": lambda: v8.fc1_gelu_quant(c["o8"], c["w1"], c["w1_s"], c["bF"], 1.1,
-                                                    0.04, "quick_gelu_approx"),
-        "fc2_res_ln_quant": lambda: v8.fc2_res_ln_quant(c["h8"], c["x"], c["w2"], c["w2_s"],
-                                                        c["bD"], c["lnw"], c["lnb"], 1.3, 0.025,
-                                                        1e-5),
-    })
+    runs.update(int8_runs(256))
+    runs.update(int8_runs(8, " B=8"))
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes = [(name, 8, K, N) for name, (K, N) in cs.LLAMA_8B_PROJ.items()]
     shapes += [("lm_head", 8, *cs.LM_HEAD_8B), ("gateup", 4096, *cs.LLAMA_8B_PROJ["gateup"])]

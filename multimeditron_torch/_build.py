@@ -9,7 +9,9 @@ it, an unchanged tree reuses it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
-exception. A missing ``nvcc`` or a failed build raises.
+exception. A missing ``nvcc`` or a failed build raises. Every source is
+compiled with ``-Xptxas -v``; :func:`ptxas_report` reads each kernel's
+registers and spills from the last compile's output.
 
 The library links against the CUDA runtime only. The TMA tensor maps of the
 wgmma kernels are encoded with libcuda's ``cuTensorMapEncodeTiled``,
@@ -22,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,7 +37,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -82,6 +85,9 @@ SIGNATURES = {
     # dtype, stream
     "mmt_int8_res_ln_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _F, _F, _F, _I, _P),
+    # the same arguments (K7e on int8 wgmma; the entry above is K7c's)
+    "mmt_int8_fc2_res_ln_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _F, _F, _F, _I, _P),
     # a, w, ws, bias, out, M, K, N, s, inv_s, act, stream
     "mmt_int8_fc1_act_quant": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     # o, w, ws, bias, x_res, ln_w, ln_b, x_out, xq, M, K, D, s, inv_s_o, inv_s,
@@ -109,6 +115,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the last compile in this process, if any
+build_logs = {}  # source file name -> nvcc's output (ptxas -v) of the last compile
 
 
 def _nvcc() -> str:
@@ -146,6 +153,8 @@ def _compile(out: Path) -> None:
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(sources, objects)]
         logs = [p.communicate()[0] for p in procs]
+        build_logs.clear()
+        build_logs.update((src.name, log) for src, log in zip(sources, logs))
         failed = [(src.name, p.returncode, log)
                   for src, p, log in zip(sources, procs, logs) if p.returncode]
         if failed:
@@ -162,6 +171,46 @@ def _compile(out: Path) -> None:
         for obj in objects:
             obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+
+
+def ptxas_log(source: str) -> str:
+    """nvcc's output (``-Xptxas -v``) for ``csrc/<source>``: the last
+    compile's, or, when this process reused a built library, that of a
+    compile of the one source (seconds)."""
+    if source not in build_logs:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        obj = BUILD_DIR / f"ptxas_report.{os.getpid()}.o"
+        try:
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / source)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        finally:
+            obj.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stdout}")
+        build_logs[source] = proc.stdout
+    return build_logs[source]
+
+
+def ptxas_report(source: str) -> dict:
+    """The ``-Xptxas -v`` report for ``csrc/<source>`` (:func:`ptxas_log`):
+    each kernel (entry, registers, spill stores and loads in bytes) and
+    every warning line (e.g. C7512, spilled registers)."""
+    kernels, warnings = [], []
+    for line in ptxas_log(source).splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        used = re.search(r"Used (\d+) registers", line)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if entry:
+            kernels.append(dict(entry=entry.group(1), registers=None, spill_stores=None,
+                                spill_loads=None))
+        elif used and kernels:
+            kernels[-1]["registers"] = int(used.group(1))
+        elif spills and kernels:
+            kernels[-1]["spill_stores"] = int(spills.group(1))
+            kernels[-1]["spill_loads"] = int(spills.group(2))
+        elif "warning" in line:
+            warnings.append(line.strip())
+    return dict(kernels=kernels, warnings=warnings)
 
 
 def library() -> ctypes.CDLL:

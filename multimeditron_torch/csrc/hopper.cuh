@@ -120,12 +120,9 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A (n, rows, cols) row-major bf16 tensor as a 3-D map whose boxes are
-// `box_rows` rows of 64 columns in the 128-byte swizzle. Rows past `rows` of
-// a slice read as zeros (never the next slice's rows). Returns 0 or a CUDA
-// error code.
-inline int make_bf16_map(CUtensorMap* map, const void* base, int n, int rows, int cols,
-                         int box_rows) {
+// libcuda's cuTensorMapEncodeTiled through the runtime's entry-point query,
+// or nullptr where libcuda does not offer it.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -140,6 +137,16 @@ inline int make_bf16_map(CUtensorMap* map, const void* base, int n, int rows, in
                ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
                : nullptr;
   }();
+  return encode;
+}
+
+// A (n, rows, cols) row-major bf16 tensor as a 3-D map whose boxes are
+// `box_rows` rows of 64 columns in the 128-byte swizzle. Rows past `rows` of
+// a slice read as zeros (never the next slice's rows). Returns 0 or a CUDA
+// error code.
+inline int make_bf16_map(CUtensorMap* map, const void* base, int n, int rows, int cols,
+                         int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(n)};
   const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(rows) * cols * 2};

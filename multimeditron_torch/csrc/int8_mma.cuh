@@ -195,17 +195,18 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // The activations of the Pallas `_fc1_kernel` / `_mlp_fused_kernel`, in its
-// order of operations. act: 0 quick_gelu_approx, 1 quick_gelu,
+// order of operations (1 / x as __frcp_rn: IEEE round-to-nearest like
+// __fdiv_rn(1, x), so the same bits, in fewer instructions). act: 0 quick_gelu_approx, 1 quick_gelu,
 // 2 gelu_pytorch_tanh / gelu_new, 3 gelu.
 __device__ __forceinline__ float activate(float g, int act) {
   switch (act) {
     case 0: {  // quick_gelu_approx: g / bf16(1 + 2^(-1.702 log2(e) g))
       const float e = exp2f(__fmul_rn(-2.4554396102104056f, g));
-      return __fmul_rn(g, __fdiv_rn(1.f, bf16_round(__fadd_rn(1.f, e))));
+      return __fmul_rn(g, __frcp_rn(bf16_round(__fadd_rn(1.f, e))));
     }
     case 1: {  // quick_gelu: g * sigmoid(1.702 g)
       const float z = __fmul_rn(1.702f, g);
-      return __fmul_rn(g, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z))));
+      return __fmul_rn(g, __frcp_rn(__fadd_rn(1.f, expf(-z))));
     }
     case 2: {  // gelu_pytorch_tanh / gelu_new: g * (0.5 (1 + tanh(c (g + 0.044715 g^3))))
       const float g3 = __fmul_rn(__fmul_rn(g, g), g);

@@ -1,9 +1,7 @@
-// K7d, K7b and the projection half of K7g: tiled int8 GEMMs with a
-// per-column epilogue, for the fused W8A8 ViT tower.
+// K7b and the projection half of K7g: tiled int8 GEMMs with a per-column
+// epilogue, for the fused W8A8 ViT tower (K7d, fc1, is vit_int8_fc1.cu).
 //
 // Replaces, in multimeditron_tpu/ops/vit_int8_fused.py:
-// - `_fc1_kernel` (:145, reached through `fc1_gelu_quant` :588): hq =
-//   quant(act(acc * (ws * s2) + b), 1 / s3), written int8 (M, N);
 // - `_qkv_kernel` (K7b, :111, reached through `qkv_int8` :520): q, k and v =
 //   acc * (ws * s0) + b as three separate (M, D) tensors in the residual
 //   stream's dtype (bf16 or float32), or, with static q/k/v scales, each
@@ -12,27 +10,20 @@
 //   `qkv_attn_int8` :767): q8 = quant(acc * (ws * s0) + b, 1 / sq), k8 the
 //   same with 1 / sk, and v in bf16; vit_int8_attention.cu then attends.
 //
-// What bounds it on the H100: operations. fc1 at the ViT-L/14 encode shape
-// (M = 256 x 257 = 65,792, K = 1024, N = 4096) is 5.5e11 int8 operations, 0.28
-// ms at 1,979 TOPS, against 0.37 GB of traffic (0.11 ms); the QKV projection
-// (N = 3072) is 0.21 ms of operations, and so is K7b's.
+// What bounds it on the H100: operations. The QKV projection at the
+// ViT-L/14 encode shape (M = 256 x 257 = 65,792, K = 1024, N = 3072) is
+// 4.1e11 int8 operations, 0.21 ms at 1,979 TOPS, and so is K7b's.
 //
 // The design: one block of 8 warps per 128 x 128 output tile, each warp a
 // 64 x 32 sub-tile of 4 x 4 mma.sync m16n8k32 accumulators fed by
 // ldmatrix; K streams through four cp.async stages of 64 bytes (80 KB, two
-// blocks an SM; int8_mma.cuh). The int32 accumulators
-// never leave registers: the epilogue dequantises, adds the bias, applies the
-// activation and quantises in place, so only int8 (or v's bf16) is written;
-// each thread reads its 8 columns' scales and biases once. At the encode
-// shape the K loop alone takes 1.29 ms of K7d's ~2.1 ms and the exact
-// activation (exp2f, IEEE division: no approximate intrinsics, to round as
-// the reference rounds) most of the rest.
-// Blocks walk the output columns fastest, so the blocks in flight share one
-// 128-row activation tile and the whole weight stays in L2 (4 MB at most).
-// The TPU kernel's split of N into 2,048-wide blocks (VMEM pressure of the
-// f32 pre-activation) and its weight-outer grid order have no counterpart:
-// the pre-activation lives in registers. wgmma, TMA and a persistent schedule
-// are later work.
+// blocks an SM; int8_mma.cuh). The int32 accumulators never leave
+// registers: the epilogue dequantises, adds the bias and quantises (or
+// rounds to bf16) in place; each thread reads its 8 columns' scales and
+// biases once. Blocks walk the output columns fastest, so the blocks in
+// flight share one 128-row activation tile and the whole weight stays in L2.
+// wgmma, TMA and a persistent schedule (vit_int8_fc1.cu's) are later work
+// here.
 #include "int8_mma.cuh"
 
 namespace {
@@ -48,26 +39,6 @@ constexpr int kSmem = kStages * (kBM + kBN) * kLd;  // 80 KB: two blocks an SM
 // An epilogue gives each output column pair its dequantisation scale
 // (ws * s) and bias once per thread (scale, shift), then finishes and stores
 // two adjacent outputs of a row from their int32 accumulators (put).
-struct Fc1Epilogue {
-  const float* ws;
-  const float* bias;
-  int8_t* out;
-  int N;
-  float s, inv_s;
-  int act;
-
-  __device__ __forceinline__ float2 scale(int col) const {
-    return make_float2(__fmul_rn(ws[col], s), __fmul_rn(ws[col + 1], s));
-  }
-  __device__ __forceinline__ float2 shift(int col) const { return make_float2(bias[col], bias[col + 1]); }
-  __device__ __forceinline__ void put(int row, int col, int a0, int a1, float2 sc, float2 b) const {
-    char2 q;
-    q.x = quant(activate(fmaf(static_cast<float>(a0), sc.x, b.x), act), inv_s);
-    q.y = quant(activate(fmaf(static_cast<float>(a1), sc.y, b.y), act), inv_s);
-    *reinterpret_cast<char2*>(out + size_t(row) * N + col) = q;
-  }
-};
-
 struct QkvEpilogue {
   const float* ws;    // (3, D)
   const float* bias;  // (3, D)
@@ -158,17 +129,6 @@ int launch(const void* a, const void* w, int M, int N, int K, const Epilogue& ep
 }
 
 }  // namespace
-
-// a (M, K) int8, w (N, K) int8, ws / bias (N,) float -> out (M, N) int8.
-// act: 0 quick_gelu_approx, 1 quick_gelu, 2 gelu_pytorch_tanh, 3 gelu.
-extern "C" int mmt_int8_fc1_act_quant(const void* a, const void* w, const void* ws,
-                                      const void* bias, void* out, int M, int K, int N, float s,
-                                      float inv_s, int act, void* stream) {
-  if (act < 0 || act > 3) return static_cast<int>(cudaErrorInvalidValue);
-  const Fc1Epilogue epi{static_cast<const float*>(ws), static_cast<const float*>(bias),
-                        static_cast<int8_t*>(out), N, s, inv_s, act};
-  return launch(a, w, M, N, K, epi, static_cast<cudaStream_t>(stream));
-}
 
 // a (M, K) int8, w (3 D, K) int8 (q, k, v rows), ws / bias (3 D,) float ->
 // q8, k8 (M, D) int8 and v (M, D) bf16.

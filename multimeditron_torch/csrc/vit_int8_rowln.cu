@@ -1,26 +1,26 @@
-// K7a, K7c, K7e and K7f: the W8A8 ViT kernels that end in a LayerNorm of a
-// whole row, quantised to int8 for the next product.
+// K7a, K7c and K7f: the W8A8 ViT kernels that end in a LayerNorm of a
+// whole row, quantised to int8 for the next product. K7e (fc2 + residual +
+// LayerNorm) shares their body but has its own kernel on int8 wgmma + TMA,
+// vit_int8_fc2.cu; `res_ln_quant_kernel` here stays K7c's and `finish_rows`
+// K7f's tail.
 //
 // Replaces, in multimeditron_tpu/ops/vit_int8_fused.py:
 // - `_ln_quant_kernel` (:105, via `ln_quant` :501): xq = quant(LN(x), 1 / s);
-// - `_oproj_ln_kernel` (:128, via `oproj_ln_quant` :556) and `_fc2_ln_kernel`
-//   (:166, via `fc2_res_ln_quant` :639), which have one body: x' = acc *
+// - `_oproj_ln_kernel` (:128, via `oproj_ln_quant` :556): x' = acc *
 //   (ws * s) + b + x_res, written in the residual's dtype, and
 //   xq = quant(LN(x'), 1 / s_next). K7c's A operand is K7g's int8 output, or
 //   a float o (the (L, 4) and (L, 7) calibrations' layers, K7g with a float
 //   output) that the kernel quantises by 1 / s1 as it stages it (`QuantRows`,
-//   the Pallas kernel's `_quant_f32(o, 1 / s1)`). K7e's LayerNorm is the NEXT
-//   layer's ln1, so no separate ln_quant runs after layer 0;
+//   the Pallas kernel's `_quant_f32(o, 1 / s1)`);
 // - `_mlp_fused_kernel` (K7f, :179, via `mlp_fused` :673): fc1 -> activation
 //   -> quantisation -> fc2 -> residual -> LayerNorm -> quantisation in one
 //   kernel; the int8 hidden never reaches device memory.
 //
 // What bounds it on the H100: K7a by bytes (one read of x, one int8 write).
-// K7c (K = 1024) and K7e (K = 4096) by operations: at the ViT-L/14 encode
-// shape fc2 is 5.5e11 int8 operations (0.28 ms at 1,979 TOPS) against
-// 0.48 GB of traffic (0.14 ms); the o-projection's 1.4e11 operations (0.07
-// ms) sit below its 0.40 GB (0.12 ms), so it is bound by bytes (a bf16 o
-// reads 0.13 GB more). K7f's two products are 1.1e12 operations (0.56 ms).
+// K7c (K = 1024) at the ViT-L/14 encode shape: the o-projection's 1.4e11
+// operations (0.07 ms at 1,979 TOPS) sit below its 0.40 GB (0.12 ms), so it
+// is bound by bytes (a bf16 o reads 0.13 GB more). K7f's two products are
+// 1.1e12 operations (0.56 ms).
 //
 // The design: the LayerNorm needs the whole row (D = 1024), so a block owns
 // BM = 16 or 32 rows x all D columns: 8 warps along the columns (D / 8 each)
@@ -189,7 +189,7 @@ struct RowLn {
                                                                : size_t(kBM) * kLdF * 4;
 };
 
-// The tail of K7c, K7e and K7f: acc * (ws * s) + b staged in float32 over the
+// The tail of K7c and K7f: acc * (ws * s) + b staged in float32 over the
 // spent stages of `smem`, then, one warp a row, x' = staged + x_res (written
 // in x_res's dtype) and quant(LN(x'), inv_s). The warp holds rows wm0 + g
 // (+ 8) of the block at columns wn0 + 8 j + 2 t (+ 1).
@@ -237,7 +237,7 @@ __device__ __forceinline__ void finish_rows(const int (&acc)[1][NT][4], unsigned
   }
 }
 
-// K7c / K7e; ALoad is Int8Rows (an int8 A) or QuantRows<T> (K7c's float o).
+// K7c; ALoad is Int8Rows (an int8 A) or QuantRows<T> (K7c's float o).
 template <int D, int WM, typename T, class ALoad>
 __global__ void __launch_bounds__(RowLn<D, WM>::kThreads)
 res_ln_quant_kernel(ALoad a, const int8_t* __restrict__ W, const float* __restrict__ ws,

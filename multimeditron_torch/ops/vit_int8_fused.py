@@ -274,7 +274,9 @@ def ln_quant(x: torch.Tensor, ln_w, ln_b, scale: float, eps: float) -> torch.Ten
 def _res_ln_quant(name: str, a, x_res, wq, ws, bias, ln_w, ln_b, s: float, s_next: float,
                   eps: float):
     """K7c / K7e. ``a`` is int8, or (K7c's ``oproj_ln_quant_float``) a float
-    o in x_res's dtype that the kernel quantises by 1/s as it stages it."""
+    o in x_res's dtype that the kernel quantises by 1/s as it stages it. K7c
+    runs ``csrc/vit_int8_rowln.cu``, K7e ``csrc/vit_int8_fc2.cu`` (a cluster
+    of D / 256 blocks a row block, int8 wgmma + TMA)."""
     M, K = a.shape
     D = wq.shape[0]
     inv_s = f32_inv(s_next)
@@ -301,8 +303,12 @@ def _res_ln_quant(name: str, a, x_res, wq, ws, bias, ln_w, ln_b, s: float, s_nex
     pointers = (a.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), x_res.data_ptr(),
                 ln_w.data_ptr(), ln_b.data_ptr(), x_out.data_ptr(), xq.data_ptr(), M, K, D, f32(s))
     tail = (inv_s, eps, _build.DTYPE_CODES[x_res.dtype], _build.stream_handle(a.device))
-    code = (lib.mmt_float_res_ln_quant(*pointers, f32_inv(s), *tail) if quantise_a
-            else lib.mmt_int8_res_ln_quant(*pointers, *tail))
+    if quantise_a:
+        code = lib.mmt_float_res_ln_quant(*pointers, f32_inv(s), *tail)
+    elif name == "fc2_res_ln_quant":  # K7e: its own kernel on int8 wgmma
+        code = lib.mmt_int8_fc2_res_ln_quant(*pointers, *tail)
+    else:
+        code = lib.mmt_int8_res_ln_quant(*pointers, *tail)
     _build.check(name, code)
     launches[name] += 1
     return x_out, xq
@@ -326,7 +332,8 @@ def fc2_res_ln_quant(hq, x_res, wq, ws, bias, ln_w, ln_b, s3: float, s0_next: fl
 
 
 def fc1_gelu_quant(xq, wq, ws, bias, s2: float, s3: float, act: str) -> torch.Tensor:
-    """K7d: quant(act(xq @ wq * ws * s2 + b), s3) -> (M, N) int8."""
+    """K7d: quant(act(xq @ wq * ws * s2 + b), s3) -> (M, N) int8
+    (``csrc/vit_int8_fc1.cu``, persistent int8 wgmma + TMA)."""
     M, K = xq.shape
     N = wq.shape[0]
     if act not in ACTIVATIONS:

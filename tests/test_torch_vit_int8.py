@@ -158,6 +158,42 @@ def test_fc1_gelu_quant_matches_pallas(act):
     assert np.abs(np.asarray(want)).mean() > 5  # the case exercises the quantiser
 
 
+# The twins that the card holds K7d and K7e to, at the edges of the CUDA
+# kernels' tiles (64-row warpgroup tiles, 128-row blocks; three 128-column
+# weight tiles; D = 768, a cluster of three 256-column blocks; K = 192, 128
+# bytes of K a stage and then 64)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M", [63, 64, 65, 129])
+def test_fc2_res_ln_quant_matches_pallas_at_tile_edges(dtype, M):
+    K, D = 192, 768
+    rng, a8, w8, ws, bias = _gemm_case(4, M, K, D, 60)
+    x_res = rng.normal(size=(M, D)).astype(np.float32)
+    lnw = rng.uniform(0.5, 1.5, D).astype(np.float32)
+    lnb = (rng.normal(size=D) * 0.1).astype(np.float32)
+    jres, tres = _pair(x_res, dtype)
+    jx, jxq = jf.fc2_res_ln_quant(jnp.asarray(a8), jres, jnp.asarray(w8), jnp.asarray(ws),
+                                  jnp.asarray(bias), jnp.asarray(lnw), jnp.asarray(lnb), 1.3,
+                                  0.025, 1e-5)
+    tx, txq = tf.fc2_res_ln_quant(torch.from_numpy(a8), tres, torch.from_numpy(w8.T.copy()),
+                                  torch.from_numpy(ws), torch.from_numpy(bias),
+                                  torch.from_numpy(lnw), torch.from_numpy(lnb), 1.3, 0.025, 1e-5)
+    _assert_within_ulp(tx, np.asarray(jx, np.float32), DTYPES[dtype][1])
+    _assert_int8_close(txq, jxq)
+
+
+@pytest.mark.parametrize("act", ["quick_gelu_approx", "gelu"])
+@pytest.mark.parametrize("M", [63, 64, 65, 129])
+def test_fc1_gelu_quant_matches_pallas_at_tile_edges(act, M):
+    K, N = 192, 384
+    _, a8, w8, ws, bias = _gemm_case(5, M, K, N, 40)
+    want = jf.fc1_gelu_quant(jnp.asarray(a8), jnp.asarray(w8), jnp.asarray(ws),
+                             jnp.asarray(bias), 1.1, 0.04, act)
+    got = tf.fc1_gelu_quant(torch.from_numpy(a8), torch.from_numpy(w8.T.copy()),
+                            torch.from_numpy(ws), torch.from_numpy(bias), 1.1, 0.04, act)
+    _assert_int8_close(got, want)
+    assert np.abs(np.asarray(want)).mean() > 5  # the case exercises the quantiser
+
+
 def _qkv_case(seed, B, S, D, shift):
     rng = np.random.default_rng(seed)
     xq = rng.integers(-127, 128, (B, S, D)).astype(np.int8)
