@@ -9,8 +9,8 @@ Phases, each of which raises on failure (non-zero exit):
 1. device: a CUDA device must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/,
-   and prints what ptxas reports for K7d's and K7e's kernels (registers,
-   spills);
+   and prints what ptxas reports for the QKV projection's, K7d's and K7e's
+   kernels (registers, spills);
 3. kernels: each kernel (K3 encoder attention and its gradient at the
    serving batch, and in bf16 at the encode batch of 256 images beside SDPA's
    device time; K4 ring decode attention, K8 paged decode attention (the
@@ -22,7 +22,8 @@ Phases, each of which raises on failure (non-zero exit):
    the card, at the main paths' shapes, in float32 and bfloat16; the W8A8 ViT
    kernels (K7a
    ln_quant, K7g qkv_attn_int8 in each consume path: int8 out, float out,
-   static stabiliser without fuse_l, row max; K7b qkv_int8 with bf16 and int8
+   static stabiliser without fuse_l, row max; K7g's QKV projection alone,
+   bitwise against its twin; K7b qkv_int8 with bf16, float32 and int8
    outputs, K7c oproj_ln_quant with an int8 and a bf16 o, K7d fc1_gelu_quant,
    K7e fc2_res_ln_quant, K7f mlp_fused, also against the split pair (x''
    bitwise, the int8 row within the int8 tolerance: K7e's LayerNorm sums
@@ -196,7 +197,7 @@ KERNELS = {
         module=v8, source="multimeditron_torch/csrc/vit_int8_attention.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:217"),
     "oproj_ln_quant": dict(
-        module=v8, source="multimeditron_torch/csrc/vit_int8_rowln.cu",
+        module=v8, source="multimeditron_torch/csrc/vit_int8_fc2.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:128"),
     "fc1_gelu_quant": dict(
         module=v8, source="multimeditron_torch/csrc/vit_int8_fc1.cu",
@@ -210,6 +211,10 @@ KERNELS = {
     "qkv_int8": dict(
         module=v8, source="multimeditron_torch/csrc/vit_int8_gemm.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:111"),
+    # K7g's projection alone: the kernel that every K7g form launches first
+    "qkv_project": dict(
+        module=v8, source="multimeditron_torch/csrc/vit_int8_gemm.cu",
+        replaces="multimeditron_tpu/ops/vit_int8_fused.py:217"),
     "qkv_attn_int8_rowmax": dict(
         module=v8, source="multimeditron_torch/csrc/vit_int8_attention.cu",
         replaces="multimeditron_tpu/ops/vit_int8_fused.py:446"),
@@ -232,7 +237,7 @@ KERNELS = {
 SERVING = ("encoder_attention", "ring_decode_attention", "fold_ring_into_pages")
 SPEC_SERVING = ("encoder_attention", "ring_verify_attention", "fold_ring_into_pages")
 TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-INT8_TOWER = ("ln_quant", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
+INT8_TOWER = ("ln_quant", "qkv_project", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
               "fc2_res_ln_quant")
 # each image tower's kernels: ln_quant once a forward, the others once a layer;
 # every other tower kernel must not launch
@@ -241,14 +246,16 @@ TOWERS = {
     "L8": (("ln_quant",), INT8_TOWER[1:]),
     "L4": (("ln_quant",), ("qkv_int8", "encoder_attention", "oproj_ln_quant_float",
                            "fc1_gelu_quant", "fc2_res_ln_quant")),
-    "L7": (("ln_quant",), ("qkv_attn_int8_rowmax", "oproj_ln_quant_float", "fc1_gelu_quant",
-                           "fc2_res_ln_quant")),
-    "L8_float_out": (("ln_quant",), ("qkv_attn_int8_float_out", "oproj_ln_quant_float",
-                                     "fc1_gelu_quant", "fc2_res_ln_quant")),
-    "L8_no_fuse_l": (("ln_quant",), ("qkv_attn_int8_static", "oproj_ln_quant_float",
-                                     "fc1_gelu_quant", "fc2_res_ln_quant")),
+    "L7": (("ln_quant",), ("qkv_project", "qkv_attn_int8_rowmax", "oproj_ln_quant_float",
+                           "fc1_gelu_quant", "fc2_res_ln_quant")),
+    "L8_float_out": (("ln_quant",), ("qkv_project", "qkv_attn_int8_float_out",
+                                     "oproj_ln_quant_float", "fc1_gelu_quant",
+                                     "fc2_res_ln_quant")),
+    "L8_no_fuse_l": (("ln_quant",), ("qkv_project", "qkv_attn_int8_static",
+                                     "oproj_ln_quant_float", "fc1_gelu_quant",
+                                     "fc2_res_ln_quant")),
 }
-TOWER_KERNELS = ("encoder_attention", "ln_quant", "qkv_int8", "qkv_attn_int8",
+TOWER_KERNELS = ("encoder_attention", "ln_quant", "qkv_int8", "qkv_project", "qkv_attn_int8",
                  "qkv_attn_int8_rowmax", "qkv_attn_int8_static", "qkv_attn_int8_float_out",
                  "oproj_ln_quant", "oproj_ln_quant_float", "fc1_gelu_quant", "fc2_res_ln_quant",
                  "mlp_fused", "encoder_attention_int8")
@@ -266,9 +273,8 @@ W8A8_PER_PREFILL = 4 * 32
 
 
 # sources whose kernels' registers and spills phase 2 prints (-Xptxas -v;
-# the wgmma kernels report 168 registers, the count at launch: their
-# consumers' setmaxnreg budget is 232)
-PTXAS_REPORTED = ("vit_int8_fc1.cu", "vit_int8_fc2.cu")
+# K7d and K7e report 168 registers, the count at launch, under setmaxnreg)
+PTXAS_REPORTED = ("vit_int8_gemm.cu", "vit_int8_fc1.cu", "vit_int8_fc2.cu")
 
 T_START = time.perf_counter()
 
@@ -875,8 +881,9 @@ def int8_case(gen, B: int) -> dict:
 
 
 def check_int8_kernels(gen, B: int) -> dict:
-    """K7a/g/c/d/e at B images against their twins; times, device times,
-    bounds and partial library yardsticks."""
+    """K7a/g/c/d/e, K7g's projection alone and the kernels off the (L, 8)
+    path at B images against their twins; times, device times, bounds and
+    partial library yardsticks."""
     c = int8_case(gen, B)
     M, D, FF, S, H = c["M"], c["D"], c["FF"], c["S"], c["H"]
     tag = f"B={B} M={M}"
@@ -896,6 +903,21 @@ def check_int8_kernels(gen, B: int) -> dict:
     record("ln_quant", check_int8(f"K7a {tag}", run(), plain()), run, plain,
            lambda: F.layer_norm(c["x"], (D,), c["lnw"].bfloat16(), c["lnb"].bfloat16()),
            "partial: F.layer_norm, no quantisation", 3 * M * D + 8 * D, 0)
+
+    # K7g's projection alone: q8, k8 and v bitwise equal to the twin's
+    xq2d, wqkv_t = c["xq"].view(M, D), c["wqkv"].reshape(3 * D, D).t()
+    s0, inv_q, inv_k = (v8.f32(x) for x in c["scales6"][:3])
+    p_args = (xq2d, c["wqkv"], c["wqkv_s"], c["qkv_b"], s0, inv_q, inv_k)
+    run = lambda: v8._qkv_project(*p_args)  # noqa: E731
+    plain = lambda: v8.qkv_project_plain(*p_args)  # noqa: E731
+    for part, got, want in zip(("q8", "k8", "v"), run(), plain()):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7g's projection {part} {tag} differs from its twin")
+    log(f"  K7g's projection {tag}: q8, k8 and v bitwise equal to the twin's")
+    record("qkv_project", 0.0, run, plain, lambda: torch._int_mm(xq2d, wqkv_t),
+           "partial: torch._int_mm, the int8 product alone", M * D + 3 * D * D + 24 * D + 4 * M * D,
+           2 * M * D * 3 * D)
 
     # K7g
     g_args = (c["xq"], c["wqkv"], c["wqkv_s"], c["qkv_b"], c["scales6"], H, S)
@@ -928,12 +950,15 @@ def check_int8_kernels(gen, B: int) -> dict:
 
     w1t = c["w1"].t()
 
-    # K7b: float (the (L, 4) layer's bf16) and int8 (static q/k/v scales) outputs
-    xq2d, wqkv_t = c["xq"].view(M, D), c["wqkv"].reshape(3 * D, D).t()
+    # K7b: float (the (L, 4) layer's bf16; float32) and int8 (static q/k/v
+    # scales) outputs
     b_args = (xq2d, c["wqkv"], c["wqkv_s"], c["qkv_b"], 1.3)
     inv3 = [v8.f32_inv(x) for x in (0.02, 0.03, 0.025)]
     err = max(check_ulp(f"K7b bf16 {part} {tag}", got, want) for part, got, want in
               zip("qkv", v8.qkv_int8(*b_args), v8.qkv_int8_plain(*b_args, torch.bfloat16)))
+    for part, got, want in zip("qkv", v8.qkv_int8(*b_args, out_dtype=torch.float32),
+                               v8.qkv_int8_plain(*b_args, torch.float32)):
+        check_ulp(f"K7b float32 {part} {tag}", got, want)
     for part, got, want in zip("qkv", v8.qkv_int8(*b_args, qkv_scales=(0.02, 0.03, 0.025)),
                                v8.qkv_int8_plain(*b_args, torch.int8, inv3)):
         check_int8(f"K7b int8 {part} {tag}", got, want)

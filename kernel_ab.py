@@ -2,23 +2,23 @@
 process, on one card: the flash kernels K1, K2a and K2b in bf16 at the
 training shape (B = 1, H = 32, Hkv = 8, S = 4096, D = 128, causal, keys from
 3500 masked; K2a and K2b on K1's o and lse from the first tree), the W8A8 ViT
-kernels (K7c, K7d, K7e, K7g) at the ViT-L/14 encode shape (256 images,
-M = 65,792 rows) and the weight-only int8 matmul K9 in bf16 at the
-Llama-3.1-8B decode shapes (M = 8) and the W8A16 prefill's gate-up
-(M = 4,096).
+kernels (K7b, K7c, K7d, K7e, K7g and K7g's projection alone) at the
+ViT-L/14 encode shape (256 images, M = 65,792 rows) and the weight-only
+int8 matmul K9 in bf16 at the Llama-3.1-8B decode shapes (M = 8) and the
+W8A16 prefill's gate-up (M = 4,096).
 
     python3 kernel_ab.py [--only NAME[,NAME...]] [SOURCE_DIR ...]
 
 Each SOURCE_DIR holds a copy of ``multimeditron_torch/csrc`` (default: that
 directory alone); every tree is built into its own library. A tree older
-than K7e's own entry point
-(``mmt_int8_fc2_res_ln_quant``) runs K7e through the entry it had then,
-``mmt_int8_res_ln_quant``. K7d and K7e also run at the serving shape (8
-images, M = 2,056). The trees run in
-turns, forward then backward (A, B, B, A), each timed by its kernels' device
-time from torch.profiler, and every tree's outputs are compared with the
-first tree's: equal, or the largest difference relative to the largest
-value. ``--only`` keeps the kernels whose names start with one of the given
+than K7e's own entry point (``mmt_int8_fc2_res_ln_quant``) runs K7e through
+the entry it had then, ``mmt_int8_res_ln_quant``, and a tree that still has
+that entry runs K7c (int8 o) through it, as the wrappers did before K7c
+moved to K7e's kernel. K7c, K7d, K7e and K7g also run at the serving shape
+(8 images, M = 2,056). The trees run in turns, forward then backward (A, B,
+B, A), each timed by its kernels' device time from torch.profiler, and every
+tree's outputs are compared with the first tree's: equal, or the largest
+difference relative to the largest value. ``--only`` keeps the kernels whose names start with one of the given
 prefixes (e.g. ``--only flash``).
 """
 
@@ -53,6 +53,7 @@ def flash_runs(gen) -> dict:
 
 # entry points that a newer tree has and an older one reached under another name
 OLDER_ENTRIES = {"mmt_int8_fc2_res_ln_quant": "mmt_int8_res_ln_quant"}
+K7C_OLDER = "mmt_int8_res_ln_quant"  # K7c's (int8 o) own entry, in trees that have it
 
 
 def load_tree(d: str):
@@ -72,27 +73,49 @@ def load_tree(d: str):
         _build.SIGNATURES.update(signatures)
     for name, older in missing.items():
         setattr(lib, name, getattr(lib, older))
+    if hasattr(lib, K7C_OLDER):
+        getattr(lib, K7C_OLDER).argtypes = _build.SIGNATURES["mmt_int8_fc2_res_ln_quant"]
     return lib
 
 
+def oproj_ln_quant(*args):
+    """K7c (int8 o) on the current tree: through ``mmt_int8_res_ln_quant``
+    where the tree has it, else through the wrapper's entry."""
+    lib = _build.library()
+    if not hasattr(lib, K7C_OLDER):
+        return v8.oproj_ln_quant(*args)
+    entry = lib.mmt_int8_fc2_res_ln_quant
+    lib.mmt_int8_fc2_res_ln_quant = getattr(lib, K7C_OLDER)
+    try:
+        return v8.oproj_ln_quant(*args)
+    finally:
+        lib.mmt_int8_fc2_res_ln_quant = entry
+
+
 def int8_runs(B: int, tag: str = "") -> dict:
-    """The K7 kernels at B images of the ViT-L/14 shape (K7c and K7g at the
-    encode shape only)."""
+    """The K7 kernels at B images of the ViT-L/14 shape (K7b and K7g's
+    projection alone at the encode shape only)."""
     c = cs.int8_case(torch.Generator(device="cuda").manual_seed(0), B)
+    M, D = c["M"], c["D"]
+    xq2d = c["xq"].view(M, D)
+    s0, inv_q, inv_k = (v8.f32(x) for x in c["scales6"][:3])
     runs = {
         f"fc1_gelu_quant{tag}": lambda: v8.fc1_gelu_quant(c["o8"], c["w1"], c["w1_s"], c["bF"],
                                                           1.1, 0.04, "quick_gelu_approx"),
         f"fc2_res_ln_quant{tag}": lambda: v8.fc2_res_ln_quant(c["h8"], c["x"], c["w2"],
                                                               c["w2_s"], c["bD"], c["lnw"],
                                                               c["lnb"], 1.3, 0.025, 1e-5),
+        f"qkv_attn_int8{tag}": lambda: v8.qkv_attn_int8(c["xq"], c["wqkv"], c["wqkv_s"],
+                                                        c["qkv_b"], c["scales6"], 16, 257),
+        f"oproj_ln_quant{tag}": lambda: oproj_ln_quant(c["o8"], c["x"], c["wo"], c["wo_s"],
+                                                       c["bD"], c["lnw"], c["lnb"], 1.3, 0.025,
+                                                       1e-5),
     }
     if not tag:
         runs.update({
-            "qkv_attn_int8": lambda: v8.qkv_attn_int8(c["xq"], c["wqkv"], c["wqkv_s"],
-                                                      c["qkv_b"], c["scales6"], 16, 257),
-            "oproj_ln_quant": lambda: v8.oproj_ln_quant(c["o8"], c["x"], c["wo"], c["wo_s"],
-                                                        c["bD"], c["lnw"], c["lnb"], 1.3, 0.025,
-                                                        1e-5),
+            "qkv_project": lambda: v8._qkv_project(xq2d, c["wqkv"], c["wqkv_s"], c["qkv_b"], s0,
+                                                   inv_q, inv_k),
+            "qkv_int8": lambda: v8.qkv_int8(xq2d, c["wqkv"], c["wqkv_s"], c["qkv_b"], 1.3),
         })
     return runs
 

@@ -82,10 +82,7 @@ SIGNATURES = {
     # x, ln_w, ln_b, out, M, D, eps, inv_s, dtype, stream
     "mmt_int8_ln_quant": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # a, w, ws, bias, x_res, ln_w, ln_b, x_out, xq, M, K, D, s, inv_s, eps,
-    # dtype, stream
-    "mmt_int8_res_ln_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _F, _F, _F, _I, _P),
-    # the same arguments (K7e on int8 wgmma; the entry above is K7c's)
+    # dtype, stream (K7e, and K7c with an int8 o)
     "mmt_int8_fc2_res_ln_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _F, _F, _F, _I, _P),
     # a, w, ws, bias, out, M, K, N, s, inv_s, act, stream

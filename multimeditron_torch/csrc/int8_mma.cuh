@@ -1,5 +1,7 @@
-// Shared tile core of the W8A8 ViT kernels (K7a-K7g, K10): int8
-// products on the tensor cores with mma.sync m16n8k32 (s8 x s8 -> s32).
+// Shared tile core of the W8A8 ViT kernels on mma.sync (K7c, K7f, K7g's
+// attention, K10): int8 products on the tensor cores with mma.sync
+// m16n8k32 (s8 x s8 -> s32). The wgmma kernels (K7b, K7d, K7e and K7g's
+// projection, int8_wgmma.cuh) take its rounding helpers.
 //
 // Layout contract: every int8 operand is row-major with K contiguous. The
 // activation A is (M, K); the weight B is (N, K), one row per output column,
@@ -168,18 +170,6 @@ __device__ __forceinline__ void zero(int (&acc)[MT][NT][4]) {
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-}
-
-// acc = A (M, K) . B (N, K)^T over a block tile, both int8 in device memory.
-template <int BM, int BN, int MT, int NT, int kThreads, int kStages>
-__device__ __forceinline__ void gemm_mainloop(int (&acc)[MT][NT][4], int8_t* smem,
-                                              const int8_t* __restrict__ A,
-                                              const int8_t* __restrict__ B, int M, int N, int K,
-                                              int m0, int n0, int wm0, int wn0, int lane) {
-  zero(acc);
-  gemm_accumulate<BM, BN, MT, NT, kThreads, kStages>(acc, smem, Int8Rows{A, M, K},
-                                                     Int8Rows{B, N, K}, K, m0, n0, wm0, wn0,
-                                                     lane);
 }
 
 // clip(round_half_even(h * inv_s), -127, 127)

@@ -1,5 +1,6 @@
 // Int8 products on Hopper's warpgroup tensor cores, for the redesigned K7d
-// (vit_int8_fc1.cu) and K7e (vit_int8_fc2.cu): wgmma with s8 x s8 -> s32,
+// (vit_int8_fc1.cu), K7e and K7c (vit_int8_fc2.cu) and the QKV projection
+// of K7b and K7g (vit_int8_gemm.cu): wgmma with s8 x s8 -> s32,
 // operands brought in by TMA through a ring of shared-memory stages that a
 // producer warp keeps full for the consumer warpgroups, TMA stores, the
 // cluster primitives K7e's LayerNorm uses, and an int8 quantiser without

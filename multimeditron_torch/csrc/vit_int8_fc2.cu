@@ -3,15 +3,19 @@
 // written in x_res's dtype, and xq = quant(LN(x''), 1 / s0_next) int8.
 //
 // Replaces `_fc2_ln_kernel` (multimeditron_tpu/ops/vit_int8_fused.py:166,
-// reached through `fc2_res_ln_quant` :639). K7c (`oproj_ln_quant`, the same
-// body after the attention output projection) keeps `res_ln_quant_kernel`
-// in vit_int8_rowln.cu, and so does K7f's tail.
+// reached through `fc2_res_ln_quant` :639), and, for K7c with an int8 o, the
+// same body after the attention output projection, `_oproj_ln_kernel`
+// (:128, reached through `oproj_ln_quant` :556), at K = D. K7c with a float o
+// keeps `res_ln_quant_kernel` in vit_int8_rowln.cu (TMA cannot quantise as
+// it loads), and so does K7f's tail.
 //
 // What bounds it on the H100: operations. At the ViT-L/14 encode shape
 // (M = 65,792, K = 4096, D = 1024) a call is 5.5e11 int8 operations, 0.2789
-// ms at 1,979 TOPS, against 0.61 GB of device-memory traffic (0.18 ms). The
-// LayerNorm needs a whole row of x'', so a block that owns full rows (as
-// K7c's kernel does: 32 rows x all D columns) re-reads the whole 4 MB weight
+// ms at 1,979 TOPS, against 0.61 GB of device-memory traffic (0.18 ms); K7c
+// at K = 1024 is bound by bytes (1.4e11 operations, 0.07 ms, against 0.40
+// GB, 0.12 ms: bytes that the epilogue below moves). The LayerNorm needs a
+// whole row of x'', so a block that owns full rows (as vit_int8_rowln.cu's
+// res_ln_quant_kernel does: 32 rows x all D columns) re-reads the whole 4 MB weight
 // from L2 for every 32 rows: 8.4 GB a call.
 //
 // The design: a row block of BM = 128 rows (64 where there are too few row

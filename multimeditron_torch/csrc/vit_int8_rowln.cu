@@ -1,25 +1,26 @@
-// K7a, K7c and K7f: the W8A8 ViT kernels that end in a LayerNorm of a
-// whole row, quantised to int8 for the next product. K7e (fc2 + residual +
-// LayerNorm) shares their body but has its own kernel on int8 wgmma + TMA,
-// vit_int8_fc2.cu; `res_ln_quant_kernel` here stays K7c's and `finish_rows`
-// K7f's tail.
+// K7a, K7c with a float o and K7f: the W8A8 ViT kernels that end in a
+// LayerNorm of a whole row, quantised to int8 for the next product. K7e (fc2
+// + residual + LayerNorm) shares their body but has its own kernel on int8
+// wgmma + TMA, vit_int8_fc2.cu, and K7c with an int8 o (K = 1024) runs that
+// kernel too; `res_ln_quant_kernel` here stays K7c's float-o form's and
+// `finish_rows` K7f's tail.
 //
 // Replaces, in multimeditron_tpu/ops/vit_int8_fused.py:
 // - `_ln_quant_kernel` (:105, via `ln_quant` :501): xq = quant(LN(x), 1 / s);
-// - `_oproj_ln_kernel` (:128, via `oproj_ln_quant` :556): x' = acc *
-//   (ws * s) + b + x_res, written in the residual's dtype, and
-//   xq = quant(LN(x'), 1 / s_next). K7c's A operand is K7g's int8 output, or
-//   a float o (the (L, 4) and (L, 7) calibrations' layers, K7g with a float
-//   output) that the kernel quantises by 1 / s1 as it stages it (`QuantRows`,
-//   the Pallas kernel's `_quant_f32(o, 1 / s1)`);
+// - `_oproj_ln_kernel` with a float o (:128, :134-135, via `oproj_ln_quant`
+//   :556): x' = acc * (ws * s) + b + x_res, written in the residual's dtype,
+//   and xq = quant(LN(x'), 1 / s_next), where A is the (L, 4) and (L, 7)
+//   calibrations' float o (or K7g's float output), which the kernel
+//   quantises by 1 / s1 as it stages it (`QuantRows`, the Pallas kernel's
+//   `_quant_f32(o, 1 / s1)`);
 // - `_mlp_fused_kernel` (K7f, :179, via `mlp_fused` :673): fc1 -> activation
 //   -> quantisation -> fc2 -> residual -> LayerNorm -> quantisation in one
 //   kernel; the int8 hidden never reaches device memory.
 //
 // What bounds it on the H100: K7a by bytes (one read of x, one int8 write).
 // K7c (K = 1024) at the ViT-L/14 encode shape: the o-projection's 1.4e11
-// operations (0.07 ms at 1,979 TOPS) sit below its 0.40 GB (0.12 ms), so it
-// is bound by bytes (a bf16 o reads 0.13 GB more). K7f's two products are
+// operations (0.07 ms at 1,979 TOPS) sit below its 0.47 GB with a bf16 o
+// (0.14 ms), so it is bound by bytes. K7f's two products are
 // 1.1e12 operations (0.56 ms).
 //
 // The design: the LayerNorm needs the whole row (D = 1024), so a block owns
@@ -237,7 +238,7 @@ __device__ __forceinline__ void finish_rows(const int (&acc)[1][NT][4], unsigned
   }
 }
 
-// K7c; ALoad is Int8Rows (an int8 A) or QuantRows<T> (K7c's float o).
+// K7c with a float o; ALoad is QuantRows<T>.
 template <int D, int WM, typename T, class ALoad>
 __global__ void __launch_bounds__(RowLn<D, WM>::kThreads)
 res_ln_quant_kernel(ALoad a, const int8_t* __restrict__ W, const float* __restrict__ ws,
@@ -408,23 +409,9 @@ extern "C" int mmt_int8_ln_quant(const void* x, const void* lnw, const void* lnb
   }));
 }
 
-// a (M, K) int8, w (D, K) int8, ws / bias / lnw / lnb (D,) float, xres (M, D)
-// float or bf16 -> xout (M, D) in xres's dtype, xq (M, D) int8.
-extern "C" int mmt_int8_res_ln_quant(const void* a, const void* w, const void* ws,
-                                     const void* bias, const void* xres, const void* lnw,
-                                     const void* lnb, void* xout, void* xq, int M, int K, int D,
-                                     float s, float inv_s, float eps, int dtype, void* stream) {
-  if (M < 1 || K % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Int8Rows rows{static_cast<const int8_t*>(a), M, K};
-  MMT_DISPATCH_VIT_WIDTH(D, MMT_DISPATCH_DTYPE(dtype, {
-    return launch_res_ln_rows<kD, scalar_t>(rows, w, ws, bias, xres, lnw, lnb, xout, xq, M, K, s,
-                                            inv_s, eps, st);
-  }));
-}
-
 // K7c with a float o: o (M, K) in xres's dtype, quantised by inv_s_o as it is
-// staged; the rest as mmt_int8_res_ln_quant.
+// staged; w (D, K) int8, ws / bias / lnw / lnb (D,) float, xres (M, D) float
+// or bf16 -> xout (M, D) in xres's dtype, xq (M, D) int8.
 extern "C" int mmt_float_res_ln_quant(const void* o, const void* w, const void* ws,
                                       const void* bias, const void* xres, const void* lnw,
                                       const void* lnb, void* xout, void* xq, int M, int K, int D,

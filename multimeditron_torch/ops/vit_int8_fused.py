@@ -78,9 +78,11 @@ ATTENTION_FORMS = {("fused", True): "qkv_attn_int8",
                    ("fused", False): "qkv_attn_int8_float_out",
                    ("static", False): "qkv_attn_int8_static",
                    ("rowmax", False): "qkv_attn_int8_rowmax"}
-launches = {"ln_quant": 0, "qkv_int8": 0, **{n: 0 for n in ATTENTION_FORMS.values()},
-            "oproj_ln_quant": 0, "oproj_ln_quant_float": 0, "fc1_gelu_quant": 0,
-            "fc2_res_ln_quant": 0, "mlp_fused": 0}
+# ``qkv_project`` counts the projection kernel that every K7g form launches.
+launches = {"ln_quant": 0, "qkv_int8": 0, "qkv_project": 0,
+            **{n: 0 for n in ATTENTION_FORMS.values()}, "oproj_ln_quant": 0,
+            "oproj_ln_quant_float": 0, "fc1_gelu_quant": 0, "fc2_res_ln_quant": 0,
+            "mlp_fused": 0}
 
 ACTIVATIONS = {"quick_gelu_approx": 0, "quick_gelu": 1, "gelu_pytorch_tanh": 2, "gelu_new": 2,
                "gelu": 3}
@@ -157,16 +159,29 @@ def fc1_gelu_quant_plain(xq, wq, ws, bias, s: float, inv_s: float, act: str) -> 
     return _quant(activate(_dequant(int8_matmul(xq, wq), ws, s, bias), act), inv_s)
 
 
-def qkv_int8_plain(xq, wq, ws, bias, s0: float, out_dtype: torch.dtype,
-                   inv3: Optional[Sequence[float]] = None):
-    """K7b: xq (M, K) int8 against wq (3, D, K) -> q, k, v (M, D), each
-    acc * (ws * s0) + b in ``out_dtype``, or quantised by ``inv3`` to int8."""
+def _qkv_parts(xq, wq, ws, bias, s0: float) -> List[torch.Tensor]:
+    """xq (M, K) int8 against wq (3, D, K): q, k and v (M, D), each
+    acc * (ws * s0) + b in float32."""
     D = wq.shape[1]
     val = _dequant(int8_matmul(xq, wq.reshape(3 * D, -1)), ws, s0, bias)
-    parts = [val[:, j * D:(j + 1) * D] for j in range(3)]
+    return [val[:, j * D:(j + 1) * D] for j in range(3)]
+
+
+def qkv_int8_plain(xq, wq, ws, bias, s0: float, out_dtype: torch.dtype,
+                   inv3: Optional[Sequence[float]] = None):
+    """K7b: q, k, v (M, D) of ``_qkv_parts`` in ``out_dtype``, or quantised
+    by ``inv3`` to int8."""
+    parts = _qkv_parts(xq, wq, ws, bias, s0)
     if inv3 is not None:
         return tuple(_quant(x, inv) for x, inv in zip(parts, inv3))
     return tuple(x.to(out_dtype).contiguous() for x in parts)
+
+
+def qkv_project_plain(xq, wq, ws, bias, s0: float, inv_q: float, inv_k: float):
+    """K7g's projection: q8, k8 (M, D) int8 (quantised by inv_q, inv_k) and
+    v (M, D) bf16 of ``_qkv_parts``."""
+    q, k, v = _qkv_parts(xq, wq, ws, bias, s0)
+    return _quant(q, inv_q), _quant(k, inv_k), v.to(torch.bfloat16)
 
 
 def qkv_attn_int8_plain(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: int,
@@ -182,13 +197,12 @@ def qkv_attn_int8_plain(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: 
     H, dh = num_heads, D // num_heads
     s0, inv_q, inv_k, shift, qk_scale, inv_s1 = scales6
     a = f32(np.float32(qk_scale) * np.float32(LOG2E))
-    val = _dequant(int8_matmul(xq3.reshape(B * S, D), wq.reshape(3 * D, D)), ws, s0, bias)
+    q8, k8, v = qkv_project_plain(xq3.reshape(B * S, D), wq.reshape(3, D, D), ws, bias, s0,
+                                  inv_q, inv_k)
 
     def heads(t):
         return t.reshape(B, S, H, dh).transpose(1, 2).float()
 
-    q8, k8 = _quant(val[:, :D], inv_q), _quant(val[:, D:2 * D], inv_k)
-    v = val[:, 2 * D:].to(torch.bfloat16)
     # int8 q.k over dh = 64 stays below 2^24: exact in float32
     acc = heads(q8) @ heads(k8).transpose(-1, -2)
     valid = torch.arange(S, device=acc.device) < kv_len
@@ -274,9 +288,9 @@ def ln_quant(x: torch.Tensor, ln_w, ln_b, scale: float, eps: float) -> torch.Ten
 def _res_ln_quant(name: str, a, x_res, wq, ws, bias, ln_w, ln_b, s: float, s_next: float,
                   eps: float):
     """K7c / K7e. ``a`` is int8, or (K7c's ``oproj_ln_quant_float``) a float
-    o in x_res's dtype that the kernel quantises by 1/s as it stages it. K7c
-    runs ``csrc/vit_int8_rowln.cu``, K7e ``csrc/vit_int8_fc2.cu`` (a cluster
-    of D / 256 blocks a row block, int8 wgmma + TMA)."""
+    o in x_res's dtype that the kernel quantises by 1/s as it stages it. An
+    int8 ``a`` runs ``csrc/vit_int8_fc2.cu`` (a cluster of D / 256 blocks a
+    row block, int8 wgmma + TMA), a float o ``csrc/vit_int8_rowln.cu``."""
     M, K = a.shape
     D = wq.shape[0]
     inv_s = f32_inv(s_next)
@@ -305,10 +319,8 @@ def _res_ln_quant(name: str, a, x_res, wq, ws, bias, ln_w, ln_b, s: float, s_nex
     tail = (inv_s, eps, _build.DTYPE_CODES[x_res.dtype], _build.stream_handle(a.device))
     if quantise_a:
         code = lib.mmt_float_res_ln_quant(*pointers, f32_inv(s), *tail)
-    elif name == "fc2_res_ln_quant":  # K7e: its own kernel on int8 wgmma
-        code = lib.mmt_int8_fc2_res_ln_quant(*pointers, *tail)
     else:
-        code = lib.mmt_int8_res_ln_quant(*pointers, *tail)
+        code = lib.mmt_int8_fc2_res_ln_quant(*pointers, *tail)
     _build.check(name, code)
     launches[name] += 1
     return x_out, xq
@@ -387,6 +399,32 @@ def qkv_int8(xq, wq, ws, bias, s0: float, *, out_dtype: torch.dtype = torch.bflo
     return q, k, v
 
 
+def _qkv_project(xq, wq, ws, bias, s0: float, inv_q: float, inv_k: float):
+    """K7g's projection alone (``qkv_attn_int8`` launches it before the
+    attention): xq (M, D) int8 @ wq (3, D, D) -> q8, k8 (M, D) int8 and v
+    (M, D) bf16, in ``csrc/vit_int8_gemm.cu``'s persistent int8 wgmma + TMA
+    kernel on the card, by ``qkv_project_plain`` on the CPU."""
+    M, D = xq.shape
+    _check_int8("qkv_project", xq=xq, wq=wq)
+    if wq.numel() != 3 * D * D:
+        raise ValueError(f"qkv_project: wq {tuple(wq.shape)} is not (3, {D}, {D})")
+    if not _on_card("qkv_project", xq, wq, ws, bias):
+        return qkv_project_plain(xq, wq.reshape(3, D, D), ws, bias, s0, inv_q, inv_k)
+    if D % 128:
+        raise ValueError(f"qkv_project: width {D} must be a multiple of 128")
+    ws, bias = _vec(ws, 3 * D, "ws"), _vec(bias, 3 * D, "bias")
+    q8 = torch.empty(M, D, dtype=torch.int8, device=xq.device)
+    k8 = torch.empty_like(q8)
+    v = torch.empty(M, D, dtype=torch.bfloat16, device=xq.device)
+    code = _build.library().mmt_int8_qkv_project(
+        xq.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), q8.data_ptr(),
+        k8.data_ptr(), v.data_ptr(), M, D, D, f32(s0), inv_q, inv_k,
+        _build.stream_handle(xq.device))
+    _build.check("qkv_project", code)
+    launches["qkv_project"] += 1
+    return q8, k8, v
+
+
 def qkv_attn_int8(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: int, kv_len: int,
                   *, static_smax: bool = True, fuse_l: bool = True,
                   out_dtype: torch.dtype = torch.int8, bf16_qk: bool = False,
@@ -428,22 +466,14 @@ def qkv_attn_int8(xq3, wq, ws, bias, scales6: Sequence[float], num_heads: int, k
         raise ValueError(f"qkv_attn_int8: out_dtype must be int8, float32 or bfloat16, "
                          f"got {out_dtype}")
     s0, inv_q, inv_k, shift, qk_scale, inv_s1 = scales6
-    ws, bias = _vec(ws, 3 * D, "ws"), _vec(bias, 3 * D, "bias")
-    M = B * S
-    q8 = torch.empty(M, D, dtype=torch.int8, device=xq3.device)
-    k8 = torch.empty_like(q8)
-    v = torch.empty(M, D, dtype=torch.bfloat16, device=xq3.device)
+    q8, k8, v = _qkv_project(xq3.view(B * S, D), wq, ws, bias, s0, inv_q, inv_k)
     o = torch.empty(B, S, D, dtype=out_dtype, device=xq3.device)
-    lib, stream = _build.library(), _build.stream_handle(xq3.device)
-    code = lib.mmt_int8_qkv_project(
-        xq3.data_ptr(), wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), q8.data_ptr(),
-        k8.data_ptr(), v.data_ptr(), M, D, D, s0, inv_q, inv_k, stream)
-    _build.check(f"{name} (projection)", code)
-    code = lib.mmt_int8_attention(
+    code = _build.library().mmt_int8_attention(
         q8.data_ptr(), k8.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, num_heads, HEAD_DIM,
         kv_len, f32(np.float32(qk_scale) * np.float32(LOG2E)), shift, inv_s1,
         ("fused", "static", "rowmax").index(mode),
-        2 if out_dtype == torch.int8 else _build.DTYPE_CODES[out_dtype], stream)
+        2 if out_dtype == torch.int8 else _build.DTYPE_CODES[out_dtype],
+        _build.stream_handle(xq3.device))
     _build.check(f"{name} (attention)", code)
     launches[name] += 1
     return o

@@ -8,9 +8,10 @@ with one (and without JAX), run from the repository root:
 Shapes are small and cover the edges the main path's shapes miss: tiny head
 dims, ragged sequences, GQA groups from 1 to 8 (16 in a verify block of 64
 rows per kv head), empty slots, fully masked attention rows, verify rows
-that see no key of a split, int8 kernels at ragged row counts, K7d and K7e
-at the edges of their wgmma tiles (and two runs bitwise equal, and K7e and
-K7c each on its own kernel), S = 257 and 196, drowned attention rows, every consume path of K7g and each output type
+that see no key of a split, int8 kernels at ragged row counts, K7d, K7e,
+K7c (int8 o, on K7e's kernel), K7b and K7g's projection at the edges of
+their wgmma tiles (two runs bitwise equal; K7g's projection bitwise equal
+to its twin; each K7c form on its own entry), S = 257 and 196, drowned attention rows, every consume path of K7g and each output type
 of K7b, K7c with a float o, K7f against the split pair, K10, the fused tower
 under every calibration shape, K9 at ragged N and M, split K and both tile
 heights, a quantised decoder on the card against the CPU, the flash
@@ -615,10 +616,11 @@ def test_fc1_and_fc2_kernels_are_deterministic(gen):
 
 
 def test_fc2_and_oproj_run_their_own_kernels(gen, monkeypatch):
-    # K7e reaches its wgmma kernel's entry, K7c keeps res_ln_quant_kernel's
+    # K7e and K7c with an int8 o reach K7e's wgmma kernel's entry, K7c with a
+    # float o keeps res_ln_quant_kernel's
     from multimeditron_torch import _build
     lib, calls = _build.library(), []
-    for name in ("mmt_int8_res_ln_quant", "mmt_int8_fc2_res_ln_quant"):
+    for name in ("mmt_float_res_ln_quant", "mmt_int8_fc2_res_ln_quant"):
         def counted(*args, fn=getattr(lib, name), name=name):
             calls.append(name)
             return fn(*args)
@@ -632,13 +634,100 @@ def test_fc2_and_oproj_run_their_own_kernels(gen, monkeypatch):
     args = (a8, x_res, wq, ws, bias, lnw, lnb, 1.3, 0.025, 1e-5)
     before = dict(v8.launches)
     v8.oproj_ln_quant(*args)
-    assert calls == ["mmt_int8_res_ln_quant"]
+    assert calls == ["mmt_int8_fc2_res_ln_quant"]
     assert v8.launches["oproj_ln_quant"] == before["oproj_ln_quant"] + 1
     assert v8.launches["fc2_res_ln_quant"] == before["fc2_res_ln_quant"]
     v8.fc2_res_ln_quant(*args)
-    assert calls == ["mmt_int8_res_ln_quant", "mmt_int8_fc2_res_ln_quant"]
+    assert calls == ["mmt_int8_fc2_res_ln_quant"] * 2
     assert v8.launches["fc2_res_ln_quant"] == before["fc2_res_ln_quant"] + 1
     assert v8.launches["oproj_ln_quant"] == before["oproj_ln_quant"] + 1
+    o = (0.5 * torch.randn(M, K, generator=gen, device="cuda")).to(torch.bfloat16)
+    v8.oproj_ln_quant(o, *args[1:])
+    assert calls == ["mmt_int8_fc2_res_ln_quant"] * 2 + ["mmt_float_res_ln_quant"]
+    assert v8.launches["oproj_ln_quant_float"] == before["oproj_ln_quant_float"] + 1
+    assert v8.launches["oproj_ln_quant"] == before["oproj_ln_quant"] + 1
+
+
+# K7c with an int8 o on K7e's kernel (K = D), at the edges of its 64- and
+# 128-row blocks and the serving batch, every width, both residual types
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [128, 256, 768, 1024])
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 2056])
+def test_oproj_ln_quant_kernel_tile_edges(gen, dtype, D, M):
+    a8, wq = _i8(gen, M, D), _i8(gen, D, D)
+    ws = _unif(gen, 0.5, 1.5, D) / (127 * 60 * D ** 0.5)
+    bias = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    x_res = torch.randn(M, D, generator=gen, device="cuda").to(dtype)
+    lnw, lnb = _unif(gen, 0.5, 1.5, D), 0.1 * torch.randn(D, generator=gen, device="cuda")
+    before = v8.launches["oproj_ln_quant"]
+    xo, xq = v8.oproj_ln_quant(a8, x_res, wq, ws, bias, lnw, lnb, 1.3, 0.025, 1e-5)
+    assert v8.launches["oproj_ln_quant"] == before + 1
+    xo_ref, xq_ref = v8.res_ln_quant_plain(a8, x_res, wq, ws, bias, lnw, lnb, 1.3,
+                                           v8.f32_inv(0.025), 1e-5)
+    _assert_within_ulp(xo, xo_ref)
+    _assert_int8_close(xq, xq_ref)
+
+
+# The QKV projection (K7g's, and K7b on the same kernel) at the edges of its
+# 128 x 128 tiles: rows around one tile, the serving batch's 2,056 and
+# 16,900 (more tiles than SMs, each consumer warpgroup several); every
+# width (3 D / 128 column tiles, each in one of q, k, v)
+QKV_ROWS = [1, 127, 128, 129, 2056, 16900]
+
+
+def _projection_case(gen, M, D, K):
+    xq, wq = _i8(gen, M, K), _i8(gen, 3, D, K)
+    ws = _unif(gen, 0.5, 1.5, 3, 1, D) / (127 * 60 * K ** 0.5)
+    bias = 0.1 * torch.randn(3, 1, D, generator=gen, device="cuda")
+    return xq, wq, ws, bias
+
+
+@pytest.mark.parametrize("D", [128, 256, 768, 1024])
+@pytest.mark.parametrize("M", QKV_ROWS)
+def test_qkv_project_kernel_tile_edges(gen, D, M):
+    xq, wq, ws, bias = _projection_case(gen, M, D, D)
+    scal = (1.0, v8.f32_inv(2.5 / 127), v8.f32_inv(2.0 / 127))
+    before = v8.launches["qkv_project"]
+    got = v8._qkv_project(xq, wq, ws, bias, *scal)
+    assert v8.launches["qkv_project"] == before + 1
+    want = v8.qkv_project_plain(xq, wq, ws, bias, *scal)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):  # bitwise: the twin's operations, in its order
+        assert g.dtype == w.dtype and g.shape == (M, D) and torch.equal(g, w)
+    assert want[0].abs().float().mean() > 5  # the case exercises the quantiser
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("D", [128, 256, 768, 1024])
+@pytest.mark.parametrize("M", QKV_ROWS)
+def test_qkv_int8_kernel_tile_edges(gen, out, D, M):
+    # K = 192: a stage of 128 bytes of K, then one of 64
+    xq, wq, ws, bias = _projection_case(gen, M, D, 192)
+    kw = (dict(qkv_scales=[0.02, 0.03, 0.025]) if out == "int8"
+          else dict(out_dtype=getattr(torch, out)))
+    before = v8.launches["qkv_int8"]
+    got = v8.qkv_int8(xq, wq, ws, bias, 1.3, **kw)
+    assert v8.launches["qkv_int8"] == before + 1
+    inv3 = [v8.f32_inv(x) for x in kw["qkv_scales"]] if out == "int8" else None
+    want = v8.qkv_int8_plain(xq, wq, ws, bias, 1.3, getattr(torch, out), inv3)
+    for g, w in zip(got, want):
+        assert g.shape == (M, D)
+        if out == "int8":
+            _assert_int8_close(g, w)
+        else:
+            _assert_within_ulp(g, w)
+
+
+def test_qkv_kernels_are_deterministic(gen):
+    # 16 images of ViT-L/14: several tiles a consumer warpgroup
+    M, D = 16 * 257, 1024
+    xq, wq, ws, bias = _projection_case(gen, M, D, D)
+    project = lambda: v8._qkv_project(xq, wq, ws, bias, 1.0, 50.0, 60.0)  # noqa: E731
+    split = lambda: v8.qkv_int8(xq, wq, ws, bias, 1.3)  # noqa: E731
+    for fn in (project, split):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _qkv_case(gen, B, S, H, shift):
@@ -697,8 +786,8 @@ def test_int8_kernels_refuse_what_they_do_not_take(gen):
 
 
 # the kernels an (L, 8) calibration runs with the forward's defaults
-DEFAULT_TOWER = ("ln_quant", "qkv_attn_int8", "oproj_ln_quant", "fc1_gelu_quant",
-                 "fc2_res_ln_quant")
+DEFAULT_TOWER = ("ln_quant", "qkv_project", "qkv_attn_int8", "oproj_ln_quant",
+                 "fc1_gelu_quant", "fc2_res_ln_quant")
 
 
 @pytest.mark.parametrize("dtype,tower", [(torch.float32, "clip"), (torch.bfloat16, "clip"),

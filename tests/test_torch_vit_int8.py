@@ -224,6 +224,60 @@ def test_qkv_attn_int8_matches_pallas(S, kv_len, shift):
         assert np.abs(np.asarray(want)).mean() > 5
 
 
+# K7c (int8 o, K = D) and K7g at the row edges of the card's 128-row tiles
+# (K7e's kernel for K7c; the persistent QKV projection for K7g), at widths
+# 128 and 256 (K7g with heads of 64)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("M", [127, 128, 129])
+def test_oproj_ln_quant_matches_pallas_at_tile_edges(dtype, D, M):
+    rng, a8, w8, ws, bias = _gemm_case(6, M, D, D, 60)
+    x_res = rng.normal(size=(M, D)).astype(np.float32)
+    lnw = rng.uniform(0.5, 1.5, D).astype(np.float32)
+    lnb = (rng.normal(size=D) * 0.1).astype(np.float32)
+    jres, tres = _pair(x_res, dtype)
+    jx, jxq = jf.oproj_ln_quant(jnp.asarray(a8), jres, jnp.asarray(w8), jnp.asarray(ws),
+                                jnp.asarray(bias), jnp.asarray(lnw), jnp.asarray(lnb), 1.3,
+                                0.025, 1e-5)
+    tx, txq = tf.oproj_ln_quant(torch.from_numpy(a8), tres, torch.from_numpy(w8.T.copy()),
+                                torch.from_numpy(ws), torch.from_numpy(bias),
+                                torch.from_numpy(lnw), torch.from_numpy(lnb), 1.3, 0.025, 1e-5)
+    _assert_within_ulp(tx, np.asarray(jx, np.float32), DTYPES[dtype][1])
+    _assert_int8_close(txq, jxq)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("M", [127, 128, 129])
+def test_qkv_attn_int8_matches_pallas_at_tile_edges(D, M):
+    H = D // 64
+    xq, wq, ws, bias, s6 = _qkv_case(7, 1, M, D, 6.0)
+    s6[4] = np.float32(2.5 / 127) ** 2 * np.float32(64 ** -0.5)
+    want = jf.qkv_attn_int8(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(ws),
+                            jnp.asarray(bias), jnp.asarray(s6).reshape(6, 1), H, M,
+                            out_dtype=jnp.int8, static_smax=True, allow_packed=False,
+                            block_imgs=1)
+    got = tf.qkv_attn_int8(torch.from_numpy(xq), torch.from_numpy(wq.swapaxes(1, 2).copy()),
+                           torch.from_numpy(ws), torch.from_numpy(bias), s6.tolist(), H, M)
+    _assert_int8_close(got, np.asarray(want))
+    assert np.abs(np.asarray(want)).mean() > 5
+
+
+def test_qkv_project_twin_is_k7b_on_the_same_operands():
+    # K7g's projection and K7b run one kernel on the card: the projection's
+    # twin is K7b's int8 q, k and bf16 v
+    xq, wq, ws, bias, s6 = _qkv_case(8, 2, 70, 128, 6.0)
+    txq, twq = torch.from_numpy(xq).view(140, 128), torch.from_numpy(wq.swapaxes(1, 2).copy())
+    tws, tb = torch.from_numpy(ws), torch.from_numpy(bias)
+    q8, k8, v = tf._qkv_project(txq, twq, tws, tb, float(s6[0]), float(s6[1]), float(s6[2]))
+    q8b, k8b, _ = tf.qkv_int8(txq, twq, tws, tb, float(s6[0]),
+                              qkv_scales=[1 / float(s6[1]), 1 / float(s6[2]), 1.0])
+    assert torch.equal(q8, q8b) and torch.equal(k8, k8b)
+    assert torch.equal(v, tf.qkv_int8(txq, twq, tws, tb, float(s6[0]))[2])
+    assert (q8.dtype, k8.dtype, v.dtype) == (torch.int8, torch.int8, torch.bfloat16)
+    with pytest.raises(ValueError, match="is not"):
+        tf._qkv_project(txq, twq[:2], tws, tb, 1.0, 1.0, 1.0)
+
+
 def test_unported_variants_raise():
     # the flags that measured as washes on the TPU stay refused; (L, 4) and
     # (L, 7) calibrations, int8_o=False and fuse_l=False are ported

@@ -111,6 +111,28 @@ def test_qkv_int8_matches_pallas(out):
             _assert_within_ulp(g, np.asarray(w, np.float32), DTYPES[out][1])
 
 
+# at the row edges of the card's 128-row projection tiles, widths 128 and 256
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("M", [127, 128, 129])
+def test_qkv_int8_matches_pallas_at_tile_edges(out, D, M):
+    xq, wq, ws, bias = _k7b_case(9, M, D, D)
+    scales = [0.02, 0.03, 0.025]
+    kw_j = (dict(qkv_scales=jnp.asarray(scales)) if out == "int8"
+            else dict(out_dtype=DTYPES[out][0]))
+    kw_t = dict(qkv_scales=scales) if out == "int8" else dict(out_dtype=DTYPES[out][1])
+    want = jf.qkv_int8(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(ws), jnp.asarray(bias),
+                       1.3, **kw_j)
+    got = tf.qkv_int8(torch.from_numpy(xq), torch.from_numpy(wq.swapaxes(1, 2).copy()),
+                      torch.from_numpy(ws), torch.from_numpy(bias), 1.3, **kw_t)
+    for g, w in zip(got, want):
+        assert g.shape == (M, D)
+        if out == "int8":
+            _assert_int8_close(g, w)
+        else:
+            _assert_within_ulp(g, np.asarray(w, np.float32), DTYPES[out][1])
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_oproj_ln_quant_float_o_matches_pallas(dtype):
     rng = np.random.default_rng(2)
