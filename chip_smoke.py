@@ -9,13 +9,15 @@ Phases, each of which raises on failure (non-zero exit):
 1. device: a CUDA device must be present; prints nvidia-smi's name and
    power limit;
 2. build: compiles the CUDA kernels (csrc/*.cu) into multimeditron_torch/build/,
-   and prints what ptxas reports for the QKV projection's, K7d's and K7e's
-   kernels (registers, spills);
+   and prints what ptxas reports for the QKV projection's, K7d's, K7e's,
+   K9's and K4 / K8's kernels (registers, spills);
 3. kernels: each kernel (K3 encoder attention and its gradient at the
    serving batch, and in bf16 at the encode batch of 256 images beside SDPA's
-   device time; K4 ring decode attention, K8 paged decode attention (the
-   serving shape and a 4,096-token case), K6 ring verify attention, K5 ring
-   fold, K1 flash forward (the training shape, with its TFLOP/s and SDPA's
+   device time; K4 ring decode attention (a ragged case and, in bf16, phase
+   5's shape: 8 slots of 576 keys), K8 paged decode attention (the serving
+   shape and a 4,096-token case), K6 ring verify attention, K5 ring fold
+   (K4, K6 and K8 beside SDPA over K/V gathered beforehand, K5 beside one
+   advanced-index assignment), K1 flash forward (the training shape, with its TFLOP/s and SDPA's
    device time, and its decode form: Sq = 1 over a masked 640-key cache),
    K2a/K2b flash backward on K1's own o and lse, with their TFLOP/s and SDPA's
    backward's device time) against its plain PyTorch twin on
@@ -77,6 +79,9 @@ Phases, each of which raises on failure (non-zero exit):
    K9 launches 129 times a decode or verify step, W8A8 runs 4 x 32 products
    a prefill call and none in decode; the int8 decoder's logits against the
    bf16 model's on one probe prompt (W8A16, and W8A8 with the gate open);
+   then phase 5's run in W8A16 (quantize_llm alone, docs/serving.md's
+   configuration): K9 launches 129 times a prefill call and a decode step,
+   no W8A8 product; TTFT, decode tok/s and the prefill's profile;
 12. the other calibrations of the fused int8 tower at full width: the
    phase-5 tower smoothed and calibrated on 16 uint8 images as (L, 4)
    (calibrate_act_scales) and as (L, 7) (calibrate_vit_int8_fused cut to
@@ -100,8 +105,11 @@ Phases, each of which raises on failure (non-zero exit):
 
 Phase 3 also holds K9 (the weight-only int8 matmul) against its twin at the
 Llama-3.1-8B projection shapes (M = 8, 40 and 4,096, and the lm_head at
-M = 8), float32 and bf16; phase 4 adds the engine with quantize_llm, and
-with quantize_llm + w8a8_prefill on a 256-row prefill.
+M = 8), float32 and bf16, each beside torch.matmul on a weight dequantised
+beforehand (by events and on the device); its entry sums a bf16 decode
+step's 129 calls and a W8A16 prefill layer's four products; phase 4 adds
+the engine with quantize_llm, and with quantize_llm + w8a8_prefill on a
+256-row prefill.
 
 The last lines of standard output are JSON objects for the full-width runs,
 nvidia-smi's name and power limit, a JSON object describing each kernel,
@@ -274,7 +282,8 @@ W8A8_PER_PREFILL = 4 * 32
 
 # sources whose kernels' registers and spills phase 2 prints (-Xptxas -v;
 # K7d and K7e report 168 registers, the count at launch, under setmaxnreg)
-PTXAS_REPORTED = ("vit_int8_gemm.cu", "vit_int8_fc1.cu", "vit_int8_fc2.cu")
+PTXAS_REPORTED = ("vit_int8_gemm.cu", "vit_int8_fc1.cu", "vit_int8_fc2.cu", "wo_matmul.cu",
+                  "ring_decode.cu")
 
 T_START = time.perf_counter()
 
@@ -498,7 +507,77 @@ def paged_case(dtype, gen):
         pages_len=pages_len.cuda(), lengths=(pages_len + gen_rows).cuda())
 
 
+def gathered_ring_sdpa(q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
+                       layer):
+    """A partial library yardstick for K4 (q (B, H, D)) and K6 (q (B, H, S,
+    D)): the layer's pages and ring gathered to contiguous K/V beforehand
+    (not timed), then one SDPA call with the key mask (query row i of a
+    verify block sees ring rows <= lengths - pages_len + i)."""
+    S = q.shape[2] if q.dim() == 4 else 1
+    B, H = q.shape[:2]
+    D = q.shape[-1]
+    _, Hkv, _, P, _ = k_pages.shape
+    pm, T = page_table.shape[1], k_ring.shape[3]
+    table = page_table.long()
+    k = torch.cat([k_pages[layer][:, table].transpose(0, 1).reshape(B, Hkv, pm * P, D),
+                   k_ring[layer]], dim=2)
+    v = torch.cat([v_pages[layer][:, table].transpose(0, 1).reshape(B, Hkv, pm * P, D),
+                   v_ring[layer]], dim=2)
+    page_ok = torch.arange(pm * P, device="cuda")[None, None, :] < pages_len[:, None, None]
+    ring_ok = (torch.arange(T, device="cuda")[None, None, :]
+               <= (lengths - pages_len)[:, None, None] + torch.arange(S, device="cuda")[None, :, None])
+    mask = torch.cat([page_ok.expand(B, S, pm * P), ring_ok], dim=2)[:, None]
+    qs = q if q.dim() == 4 else q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True)
+
+
+GATHERED_NOTE = ("partial: SDPA over K/V gathered from pages and ring to contiguous memory "
+                 "beforehand (the gather is not timed)")
+
+
+def ring_decode_phase5(gen) -> dict:
+    """K4 at phase 5's shape (bf16): 8 slots of 568 page keys and 8 ring rows
+    (576 keys, the decode chunk's last step), 32 heads over 8 kv heads, D =
+    128, pages of 128, an 8-row ring; 8 layers of pool and ring, each call on
+    the next layer, so that no call finds its pages in the L2 cache."""
+    B, H, Hkv, D, P, T, L, pm = 8, 32, 8, 128, 128, 8, 8, 5
+    n_pages = 1 + B * pm
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    q, kp, vp = randn(B, H, D), randn(L, Hkv, n_pages, P, D), randn(L, Hkv, n_pages, P, D)
+    kr, vr = randn(L, B, Hkv, T, D), randn(L, B, Hkv, T, D)
+    ids = np.random.default_rng(3).permutation(np.arange(1, n_pages)).reshape(B, pm)
+    table = torch.from_numpy(ids.astype(np.int32)).cuda()
+    plen = torch.full((B,), 568, dtype=torch.int32, device="cuda")
+    lens = plen + T - 1
+    tail = (table, plen, lens)
+    err = check_close("K4 bf16 phase 5 shape", paged.ring_decode_attention(q, kp, vp, kr, vr, *tail, 3),
+                      paged.ring_decode_attention_plain(q, kp, vp, kr, vr, *tail, 3),
+                      TOL[torch.bfloat16])
+    layer = {"i": 0}
+
+    def cycled(fn):
+        def run():
+            layer["i"] = (layer["i"] + 1) % L
+            return fn(q, kp, vp, kr, vr, *tail, layer["i"])
+        return run
+
+    keys = int((lens + 1).sum())
+    return dict(max_abs_err=err,
+                ms=time_ms(cycled(paged.ring_decode_attention)),
+                device_ms=device_ms(cycled(paged.ring_decode_attention), n=16),
+                plain_ms=time_ms(cycled(paged.ring_decode_attention_plain)),
+                library_ms=time_ms(gathered_ring_sdpa(q, kp, vp, kr, vr, *tail, 3)),
+                library_note=GATHERED_NOTE,
+                **bound(torch.bfloat16, (2 * keys * Hkv * D + 2 * B * H * D) * 2,
+                        4 * H * D * keys))
+
+
 def check_ring_decode(dtype, gen) -> dict:
+    """K4 in phase 3's ragged case (times and bound from this case) and, in
+    bf16, at phase 5's shape."""
     c = paged_case(dtype, gen)
     args = (c["q"], c["k_pages"], c["v_pages"], c["k_ring"], c["v_ring"],
             c["page_table"], c["pages_len"], c["lengths"], 1)
@@ -507,13 +586,20 @@ def check_ring_decode(dtype, gen) -> dict:
     B, H, D = c["q"].shape
     Hkv = c["k_pages"].shape[1]
     keys = int((c["lengths"] + 1).sum())  # pages + ring rows through this step's
-    return dict(max_abs_err=err,
-                ms=time_ms(lambda: paged.ring_decode_attention(*args)),
-                device_ms=device_ms(lambda: paged.ring_decode_attention(*args)),
-                plain_ms=time_ms(lambda: paged.ring_decode_attention_plain(*args)),
-                library_ms=None,  # no single PyTorch call gathers pages + ring
-                **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * c["q"].element_size(),
-                        4 * H * D * keys))
+    res = dict(max_abs_err=err,
+               ms=time_ms(lambda: paged.ring_decode_attention(*args)),
+               device_ms=device_ms(lambda: paged.ring_decode_attention(*args)),
+               plain_ms=time_ms(lambda: paged.ring_decode_attention_plain(*args)),
+               library_ms=time_ms(gathered_ring_sdpa(*args)),
+               library_note=GATHERED_NOTE,
+               **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * D) * c["q"].element_size(),
+                       4 * H * D * keys))
+    if dtype == torch.bfloat16:
+        res["phase5_shape"] = p5 = ring_decode_phase5(gen)
+        log(f"  K4 bf16 phase 5 shape: kernel {p5['ms']:.4f} ms (device {fmt_ms(p5['device_ms'])}), "
+            f"plain {p5['plain_ms']:.4f}, SDPA {p5['library_ms']:.4f}, bound {p5['bound_ms']:.4f} "
+            f"({p5['bound_by']})")
+    return res
 
 
 def k8_case(dtype, gen, lengths, pm):
@@ -650,7 +736,8 @@ def check_ring_verify(dtype, gen) -> dict:
                 ms=time_ms(lambda: paged.ring_verify_attention(*args)),
                 device_ms=device_ms(lambda: paged.ring_verify_attention(*args)),
                 plain_ms=time_ms(lambda: paged.ring_verify_attention_plain(*args)),
-                library_ms=None,  # no single PyTorch call gathers pages + ring
+                library_ms=time_ms(gathered_ring_sdpa(*args)),
+                library_note=GATHERED_NOTE,
                 **bound(dtype, (2 * keys * Hkv * D + 2 * B * H * S * D) * c["q"].element_size(),
                         4 * H * D * pairs))
 
@@ -673,11 +760,27 @@ def check_fold(dtype, gen) -> dict:
         raise AssertionError("K5: fold kernel disagrees with its plain twin")
     L, _, Hkv, _, D = c["k_ring"].shape
     moved = int((c["lengths"] - c["pages_len"]).clamp(0, rows).sum())  # rows per layer
+    # partial library yardstick: the twin's page and row indices computed
+    # beforehand (not timed), then one advanced-index assignment each for K
+    # and V
+    P, pm = c["k_pages"].shape[3], c["page_table"].shape[1]
+    pos = c["pages_len"][:, None].long() + torch.arange(rows, device="cuda")[None, :]
+    pid = torch.gather(c["page_table"].long(), 1, torch.clamp(pos // P, max=pm - 1))
+    pid, off = torch.where(pos < c["lengths"][:, None], pid, 0), pos % P
+    k_src = c["k_ring"][:, :, :, :rows].transpose(1, 2)
+    v_src = c["v_ring"][:, :, :, :rows].transpose(1, 2)
+
+    def index_put():
+        kp[:, :, pid, off] = k_src
+        vp[:, :, pid, off] = v_src
+
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: paged.fold_ring_into_pages(kk, vk, *tail)),
                 device_ms=device_ms(lambda: paged.fold_ring_into_pages(kk, vk, *tail)),
                 plain_ms=time_ms(lambda: paged.fold_ring_into_pages_plain(kp, vp, *tail)),
-                library_ms=None,  # no single PyTorch call scatters by page table
+                library_ms=time_ms(index_put),
+                library_note="partial: one advanced-index assignment each for K and V, the "
+                             "page and row indices computed beforehand (not timed)",
                 # K and V ring rows read and written into their pages
                 **bound(dtype, 2 * 2 * L * moved * Hkv * D * kk.element_size(), 0))
 
@@ -1085,12 +1188,13 @@ def check_wo_matmul(gen) -> dict:
                 device_ms=device_ms(lambda: wo.wo_matmul(x, w, ws), n=3 if M == 4096 else 10),
                 plain_ms=time_ms(lambda: wo.wo_matmul_plain(x, w, ws), n=n, warmup=1),
                 library_ms=time_ms(lambda: x @ deq, n=n),
+                library_device_ms=device_ms(lambda: x @ deq, n=3 if M == 4096 else 10),
                 # x and the int8 weight read, its scales read, the output written
                 bytes=M * K * elt + N * K + 4 * N + M * N * elt, ops=2 * M * K * N,
                 **bound(dtype, M * K * elt + N * K + 4 * N + M * N * elt, 2 * M * K * N))
             log(f"  K9 {t} {name} M={M}: kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
-                f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} (device "
+                f"{fmt_ms(r['library_device_ms'])}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
             del w, x, deq
         torch.cuda.empty_cache()
     # a decode step: 32 layers of the four projections, then the lm_head
@@ -1105,12 +1209,20 @@ def check_wo_matmul(gen) -> dict:
     out = dict(max_abs_err=max(r["max_abs_err"] for key, r in per.items()
                                if key.startswith("bfloat16")),
                ms=total("ms"), device_ms=total("device_ms"), plain_ms=total("plain_ms"),
-               library_ms=total("library_ms"), **bound(torch.bfloat16, total("bytes"), total("ops")),
+               library_ms=total("library_ms"), library_device_ms=total("library_device_ms"),
+               **bound(torch.bfloat16, total("bytes"), total("ops")),
                measured_as="a bf16 decode step at M = 8: 32 x (qkv, o, gate-up, down) + lm_head",
                shapes=per)
     log(f"  K9 decode step (129 calls, bf16, M = 8): kernel {out['ms']:.4f} ms (device "
-        f"{fmt_ms(out['device_ms'])}), plain {out['plain_ms']:.4f}, library {out['library_ms']:.4f}, "
-        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+        f"{fmt_ms(out['device_ms'])}), plain {out['plain_ms']:.4f}, library {out['library_ms']:.4f} "
+        f"(device {fmt_ms(out['library_device_ms'])}), bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    # the W8A16 prefill's four projections at M = 4,096, one layer
+    layer = {key: sum(per[f"bfloat16 {name} M=4096"][key] for name in LLAMA_8B_PROJ)
+             for key in ("device_ms", "library_device_ms", "bound_ms")
+             if all(per[f"bfloat16 {name} M=4096"][key] is not None for name in LLAMA_8B_PROJ)}
+    out["prefill_layer"] = layer
+    log(f"  K9 W8A16 prefill layer (qkv + o + gate-up + down, M = 4,096): {layer}")
     return out
 
 
@@ -1288,6 +1400,7 @@ def full_width_model() -> MultimodalModel:
 
 
 INT8_LLM = dict(quantize_llm=True, w8a8_prefill=True)  # the JAX bench's 8B legs
+W8A16 = dict(quantize_llm=True, w8a8_prefill=False)   # docs/serving.md's int8 decoder
 
 
 def check_int8_llm_launches(counts: dict, steps: int, prefill_calls: int) -> None:
@@ -1299,6 +1412,16 @@ def check_int8_llm_launches(counts: dict, steps: int, prefill_calls: int) -> Non
     if counts["w8a8_matmul"] != W8A8_PER_PREFILL * prefill_calls:
         raise AssertionError(f"W8A8 products are not {W8A8_PER_PREFILL} a prefill call "
                              f"and 0 in decode: {counts}")
+
+
+def check_w8a16_launches(counts: dict, steps: int, prefill_calls: int) -> None:
+    """W8A16 (quantize_llm without w8a8_prefill): K9 runs every projection
+    and the lm_head of every prefill call and decode step; no W8A8 product."""
+    if counts["wo_matmul"] < K9_PER_STEP * (steps + prefill_calls):
+        raise AssertionError(f"K9 launched fewer than {K9_PER_STEP} times a step or prefill "
+                             f"call: {counts}")
+    if counts["w8a8_matmul"]:
+        raise AssertionError(f"W8A8 products ran without w8a8_prefill: {counts}")
 
 
 def check_requests(reqs, vocab: int, budget: int = 64) -> None:
@@ -1331,14 +1454,18 @@ def logit_fidelity(ref: torch.Tensor, got: torch.Tensor) -> dict:
                 top1_agreement=(ref.argmax(-1) == got.argmax(-1)).float().mean().item())
 
 
-def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool = False) -> dict:
+def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool = False,
+                   w8a8_prefill: bool = True) -> dict:
     """Phase 5 (``tower`` "bf16", the float tower: K3); phase 10 ("L8", the
     fused int8 tower: K7, and no K3); phase 12 ("L4": K7b and K3, "L7":
-    K7g's row-max form); with ``int8_llm`` phase 11 (quantize_llm +
-    w8a8_prefill: K9 and W8A8)."""
+    K7g's row-max form); with ``int8_llm`` phase 11: quantize_llm +
+    w8a8_prefill (K9 in decode and the lm_head, W8A8 in prefill) and, with
+    ``w8a8_prefill`` False, quantize_llm alone (W8A16: K9 in prefill too, 129
+    launches a prefill call)."""
+    llm_cfg = (INT8_LLM if w8a8_prefill else W8A16) if int8_llm else {}
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=640, prefill_buckets=(512,), page_size=128,
-        decode_chunk=8, temperature=0.7, **(INT8_LLM if int8_llm else {})))
+        decode_chunk=8, temperature=0.7, **llm_cfg))
     log(f"  engine: {engine.num_pages} pages, KV pool "
         f"{2 * engine.state['k'].numel() * engine.state['k'].element_size() / 1e9:.3f} GB")
     vocab, n_req = model.config.llm.vocab_size, 8
@@ -1373,8 +1500,11 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
         raise AssertionError("K4 launched fewer than 32 times per decode step")
     if counts["fold_ring_into_pages"] < work["decode_chunks"]:
         raise AssertionError("K5 launched fewer times than there were decode chunks")
-    if int8_llm:
+    if int8_llm and w8a8_prefill:
         check_int8_llm_launches(counts, work["decode_steps"], work["prefill_calls"])
+    if int8_llm and not w8a8_prefill:
+        check_w8a16_launches(counts, work["decode_steps"], work["prefill_calls"])
+        counts.pop("w8a8_matmul")  # checked to be 0
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
 
@@ -1388,7 +1518,7 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
         feats = model.modalities["image"].encode(mm["image"]["values"])
         embeds = model.embed(torch.from_numpy(probe["input_ids"]).cuda(), mm)
         logits, _ = model.llm(inputs_embeds=embeds)
-        if int8_llm:
+        if int8_llm and w8a8_prefill:
             # the int8 decoder against the bf16 one on the same 300 positions
             w8a16, _ = engine.llm(inputs_embeds=embeds, w8a8_min_rows=0)
             w8a8, _ = engine.llm(inputs_embeds=embeds, w8a8_min_rows=256)
@@ -1418,7 +1548,16 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
             engine.submit(b, max_new_tokens=1)
         engine.run()
 
+    k9_before, calls_before = wo.launches["wo_matmul"], engine.n_prefill_calls
     prefill = busy_profile(prefill_only)
+    if int8_llm:
+        calls = engine.n_prefill_calls - calls_before
+        prefill["k9_launches_per_prefill_call"] = (wo.launches["wo_matmul"] - k9_before) / calls
+        # W8A16: every projection and the lm_head; W8A8: the lm_head alone
+        want = 1 if w8a8_prefill else K9_PER_STEP
+        if prefill["k9_launches_per_prefill_call"] != want:
+            raise AssertionError(f"K9 launched {prefill['k9_launches_per_prefill_call']} times a "
+                                 f"prefill call, not {want}")
     log(f"  one 8-request prefill: {prefill}")
 
     out = dict(
@@ -2268,12 +2407,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("[11] full width int8 LLM serving: quantize_llm + w8a8_prefill, bf16 tower; phase 5's "
-        "run, then phase 8's speculative run (k = 4)")
+        "run, phase 8's speculative run (k = 4), then phase 5's run in W8A16 (no w8a8_prefill)")
     model.modalities["image"].embedder_q = None  # back to phase 5's bf16 tower
     llm_int8 = run_full_width(model, int8_llm=True)
     gc.collect()
     torch.cuda.empty_cache()
     spec_int8 = run_spec_full_width(model, int8_llm=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  W8A16: quantize_llm without w8a8_prefill, phase 5's requests (K9 in prefill)")
+    llm_w8a16 = run_full_width(model, int8_llm=True, w8a8_prefill=False)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2317,7 +2460,8 @@ def main() -> int:
     print(json.dumps({"spec_full_width": spec}))
     print(json.dumps({"int8_encode": encode}))
     print(json.dumps({"full_width_int8_tower": {k: v for k, v in full_int8.items()}}))
-    print(json.dumps({"full_width_int8_llm": llm_int8, "spec_full_width_int8_llm": spec_int8}))
+    print(json.dumps({"full_width_int8_llm": llm_int8, "spec_full_width_int8_llm": spec_int8,
+                      "full_width_w8a16": llm_w8a16}))
     print(json.dumps({"other_calibrations": others}))
     print(json.dumps({"slab_full_width": slab}))
     print(smi)

@@ -3,9 +3,11 @@ process, on one card: the flash kernels K1, K2a and K2b in bf16 at the
 training shape (B = 1, H = 32, Hkv = 8, S = 4096, D = 128, causal, keys from
 3500 masked; K2a and K2b on K1's o and lse from the first tree), the W8A8 ViT
 kernels (K7b, K7c, K7d, K7e, K7g and K7g's projection alone) at the
-ViT-L/14 encode shape (256 images, M = 65,792 rows) and the weight-only
-int8 matmul K9 in bf16 at the Llama-3.1-8B decode shapes (M = 8) and the
-W8A16 prefill's gate-up (M = 4,096).
+ViT-L/14 encode shape (256 images, M = 65,792 rows), the weight-only int8
+matmul K9 in bf16 at the Llama-3.1-8B projection shapes (decode M = 8 with
+the lm_head, verify M = 40 and the W8A16 prefill's M = 4,096), and the
+paged decode attention K4 and K8 in bf16 at chip_smoke.py phase 3's cases
+(K4's ragged case and phase 5's shape, K8's serving case and 4,096 tokens).
 
     python3 kernel_ab.py [--only NAME[,NAME...]] [SOURCE_DIR ...]
 
@@ -16,10 +18,15 @@ the entry it had then, ``mmt_int8_res_ln_quant``, and a tree that still has
 that entry runs K7c (int8 o) through it, as the wrappers did before K7c
 moved to K7e's kernel. K7c, K7d, K7e and K7g also run at the serving shape
 (8 images, M = 2,056). The trees run in turns, forward then backward (A, B,
-B, A), each timed by its kernels' device time from torch.profiler, and every
-tree's outputs are compared with the first tree's: equal, or the largest
-difference relative to the largest value. ``--only`` keeps the kernels whose names start with one of the given
-prefixes (e.g. ``--only flash``).
+B, A), each timed by its kernels' device time from torch.profiler and by
+the replay of a CUDA graph of 20 calls (the device time a call, without
+the host's), and every tree's outputs are compared with the first tree's:
+equal, or the largest difference relative to the largest value. A tree
+from before K9's in-launch split sum (an ``mmt_wo_matmul`` without
+``tile_n``) or K4 / K8's in-launch merge (``partial`` scratch) runs them
+through the entries it had, with the split plans of that time. ``--only``
+keeps the kernels whose names start with one of the given prefixes (e.g.
+``--only flash``).
 """
 
 from __future__ import annotations
@@ -28,11 +35,13 @@ import ctypes
 import pathlib
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from multimeditron_torch import _build
 from multimeditron_torch.ops import flash_attention as fl
+from multimeditron_torch.ops import paged_attention as paged
 from multimeditron_torch.ops import vit_int8_fused as v8
 from multimeditron_torch.ops import wo_matmul as wo
 
@@ -54,6 +63,13 @@ def flash_runs(gen) -> dict:
 # entry points that a newer tree has and an older one reached under another name
 OLDER_ENTRIES = {"mmt_int8_fc2_res_ln_quant": "mmt_int8_res_ln_quant"}
 K7C_OLDER = "mmt_int8_res_ln_quant"  # K7c's (int8 o) own entry, in trees that have it
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K9, K4 and K8 as they were before their in-launch split sum and merge
+OLDER_SIGNATURES = {
+    "mmt_wo_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmt_ring_decode_attention": (_P,) * 10 + (_I,) * 9 + (_F, _I, _I, _P),
+    "mmt_paged_attention": (_P,) * 7 + (_I,) * 7 + (_F, _I, _I, _P),
+}
 
 
 def load_tree(d: str):
@@ -75,7 +91,133 @@ def load_tree(d: str):
         setattr(lib, name, getattr(lib, older))
     if hasattr(lib, K7C_OLDER):
         getattr(lib, K7C_OLDER).argtypes = _build.SIGNATURES["mmt_int8_fc2_res_ln_quant"]
+    tree = pathlib.Path(d)
+    lib.older_k9 = "tile_n" not in (tree / "wo_matmul.cu").read_text()
+    lib.older_k4 = "counters" not in (tree / "ring_decode.cu").read_text()
+    for name, argtypes in OLDER_SIGNATURES.items():
+        if lib.older_k9 if name == "mmt_wo_matmul" else lib.older_k4:
+            getattr(lib, name).argtypes = list(argtypes)
     return lib
+
+
+def older_split_k(M, K, N, sm_count):
+    """K9's split plan before the in-launch sum: two blocks an SM of 16- or
+    64-row by 128-column tiles, at least 4 chunks of 64 K values a split."""
+    chunks = K // 64
+    blocks = -(-M // (16 if M <= 16 else 64)) * -(-N // 128)
+    want = min(-(-2 * sm_count // blocks), max(1, chunks // 4))
+    per = -(-chunks // max(1, want))
+    return -(-chunks // per), per
+
+
+def wo_matmul(x, w, ws):
+    """K9 on the current tree, through the entry that tree has."""
+    lib = _build.library()
+    if not lib.older_k9:
+        return wo.wo_matmul(x, w, ws)
+    (M, K), N = x.shape, w.shape[0]
+    splits, per = older_split_k(M, K, N, wo._sm_count(0))
+    partial = torch.empty(splits, M, N, dtype=torch.float32, device="cuda")
+    out = torch.empty(M, N, dtype=x.dtype, device="cuda")
+    _build.check("wo_matmul", lib.mmt_wo_matmul(
+        x.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(), partial.data_ptr(), M, K, N,
+        splits, per, 1, _build.stream_handle(x.device)))
+    return out
+
+
+def ring_decode(q, kp, vp, kr, vr, table, plen, lens, layer):
+    """K4 on the current tree, through the entry that tree has."""
+    lib = _build.library()
+    if not lib.older_k4:
+        return paged.ring_decode_attention(q, kp, vp, kr, vr, table, plen, lens, layer)
+    (B, H, D), (_, Hkv, n_pages, P, _), pm, T = q.shape, kp.shape, table.shape[1], kr.shape[3]
+    n_splits = -(-(pm * P + T) // lib.mmt_ring_decode_split_keys())
+    partial = torch.empty(B * Hkv * n_splits * (H // Hkv) * (D + 2), dtype=torch.float32,
+                          device="cuda")
+    o = torch.empty_like(q)
+    _build.check("ring_decode_attention", lib.mmt_ring_decode_attention(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kr.data_ptr(), vr.data_ptr(),
+        table.data_ptr(), plen.data_ptr(), lens.data_ptr(), partial.data_ptr(), o.data_ptr(),
+        B, H, Hkv, D, n_pages, P, pm, T, layer, D ** -0.5, n_splits, 1,
+        _build.stream_handle(q.device)))
+    return o
+
+
+def paged_decode(q, kp, vp, table, lens):
+    """K8 on the current tree, through the entry that tree has."""
+    lib = _build.library()
+    if not lib.older_k4:
+        return paged.paged_attention(q, kp, vp, table, lens)
+    (B, H, D), (Hkv, n_pages, P, _), pm = q.shape, kp.shape, table.shape[1]
+    n_splits = -(-(pm * P) // lib.mmt_ring_decode_split_keys())
+    partial = torch.empty(B * Hkv * n_splits * (H // Hkv) * (D + 2), dtype=torch.float32,
+                          device="cuda")
+    o = torch.empty_like(q)
+    _build.check("paged_attention", lib.mmt_paged_attention(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(), lens.data_ptr(),
+        partial.data_ptr(), o.data_ptr(), B, H, Hkv, D, n_pages, P, pm, D ** -0.5, n_splits, 1,
+        _build.stream_handle(q.device)))
+    return o
+
+
+def decode_runs(gen) -> dict:
+    """K4 (phase 3's ragged case, and phase 5's shape over 8 layers taken in
+    turn) and K8 (the serving case and 4,096 tokens), bf16."""
+    c = cs.paged_case(torch.bfloat16, gen)
+    args = tuple(c[k] for k in ("q", "k_pages", "v_pages", "k_ring", "v_ring", "page_table",
+                                "pages_len", "lengths"))
+    B, H, Hkv, D, P, T, L, pm = 8, 32, 8, 128, 128, 8, 8, 5
+    n_pages = 1 + B * pm
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    p5 = (randn(B, H, D), randn(L, Hkv, n_pages, P, D), randn(L, Hkv, n_pages, P, D),
+          randn(L, B, Hkv, T, D), randn(L, B, Hkv, T, D),
+          torch.from_numpy(np.random.default_rng(3).permutation(np.arange(1, n_pages))
+                           .reshape(B, pm).astype(np.int32)).cuda(),
+          torch.full((B,), 568, dtype=torch.int32, device="cuda"),
+          torch.full((B,), 568 + T - 1, dtype=torch.int32, device="cuda"))
+    layer = {"i": 0}
+
+    def p5_run():
+        layer["i"] = (layer["i"] + 1) % L
+        return ring_decode(*p5, layer["i"])
+
+    def p5_reset():  # every tree's compared output comes from the same layer
+        layer["i"] = 0
+
+    p5_run.reset = p5_reset
+
+    serving = cs.k8_case(torch.bfloat16, gen, [513, 530, 0, 576, 541, 560, 527, 550], 5)
+    long = cs.k8_case(torch.bfloat16, gen, [4096, 3585, 3900, 4000, 3700, 4095, 3800, 3990], 32)
+    return {"ring_decode K4 ragged": lambda: ring_decode(*args, 1),
+            "ring_decode K4 phase 5": p5_run,
+            "paged K8 serving": lambda: paged_decode(*serving),
+            "paged K8 4096": lambda: paged_decode(*long)}
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5):
+    """Device time a call from the replay of a CUDA graph of n calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * reps)
 
 
 def oproj_ln_quant(*args):
@@ -120,6 +262,11 @@ def int8_runs(B: int, tag: str = "") -> dict:
     return runs
 
 
+# runs also timed by CUDA-graph replay (their wrappers allocate from the
+# caching allocator and launch, nothing else)
+GRAPHED = ("wo_matmul", "ring_decode", "paged")
+
+
 def main(dirs, only=()) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -130,13 +277,14 @@ def main(dirs, only=()) -> int:
     runs.update(int8_runs(256))
     runs.update(int8_runs(8, " B=8"))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [(name, 8, K, N) for name, (K, N) in cs.LLAMA_8B_PROJ.items()]
-    shapes += [("lm_head", 8, *cs.LM_HEAD_8B), ("gateup", 4096, *cs.LLAMA_8B_PROJ["gateup"])]
+    shapes = [(name, M, K, N) for M in (8, 40, 4096) for name, (K, N) in cs.LLAMA_8B_PROJ.items()]
+    shapes.append(("lm_head", 8, *cs.LM_HEAD_8B))
     for name, M, K, N in shapes:
         x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
         ws = (0.5 + torch.rand(N, generator=gen, device="cuda")) * (0.5 / (73 * K ** 0.5))
-        runs[f"wo_matmul {name} M={M}"] = lambda x=x, w=w, ws=ws: wo.wo_matmul(x, w, ws)
+        runs[f"wo_matmul {name} M={M}"] = lambda x=x, w=w, ws=ws: wo_matmul(x, w, ws)
+    runs.update(decode_runs(gen))
 
     if only:
         runs = {name: fn for name, fn in runs.items() if name.startswith(only)}
@@ -152,11 +300,17 @@ def main(dirs, only=()) -> int:
     first = None
     for d in list(dirs) + list(reversed(dirs)):
         _build._lib = libs[d]
-        times = {name: round(cs.device_ms(fn), 4) for name, fn in runs.items()}
+        times = {name: cs.device_ms(fn) for name, fn in runs.items()}
+        times = {name: None if t is None else round(t, 4) for name, t in times.items()}
+        graphs = {name: round(graph_ms(fn), 4) for name, fn in runs.items()
+                  if name.startswith(GRAPHED)}
+        for fn in runs.values():
+            getattr(fn, "reset", lambda: None)()
         outs = {name: fn() for name, fn in runs.items()}
         first = first or outs
         same = {name: compare(outs[name], first[name]) for name in runs}
-        print(f"{d}: device ms {times}; outputs against {dirs[0]}: {same}", flush=True)
+        print(f"{d}: device ms {times}; graph-replay ms {graphs}; outputs against {dirs[0]}: "
+              f"{same}", flush=True)
     return 0
 
 

@@ -48,15 +48,16 @@ SIGNATURES = {
     # q, k, v, o, B, S, H, Dh, kv_len, scale, dtype, stream
     "mmt_encoder_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
-    # partial (float32 scratch), o, B, H, Hkv, D, n_pages, P, pm, T,
-    # layer_index, scale, n_splits, dtype, stream
-    "mmt_ring_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+    # work (float32 scratch), counters (int32 zeros), o, L, B, H, Hkv, D,
+    # n_pages, P, pm, T, layer_index, scale, max_splits, dtype, stream
+    "mmt_ring_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _P),
     "mmt_ring_decode_split_keys": (),
-    # q, k_pages, v_pages, page_table, lengths, partial (float32 scratch), o,
-    # B, H, Hkv, D, n_pages, P, pm, scale, n_splits, dtype, stream
-    "mmt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+    # q, k_pages, v_pages, page_table, lengths, work (float32 scratch),
+    # counters (int32 zeros), o, B, H, Hkv, D, n_pages, P, pm, scale,
+    # max_splits, dtype, stream
+    "mmt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _P),
     # q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
     # partial (float32 scratch), o, B, H, Hkv, S, D, n_pages, P, pm, T,
@@ -103,9 +104,9 @@ SIGNATURES = {
     "mmt_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
     # q8, k8, v8, o, B, S, H, dh, kv_len, qk_scale, pv_scale, out_code, stream
     "mmt_encoder_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-    # x, w_q, w_s, out, partial (float32 scratch or NULL), M, K, N, splits,
-    # chunks_per_split, dtype, stream
-    "mmt_wo_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w_q, w_s, out, work (float32 scratch or NULL), counters (int32 zeros
+    # or NULL), M, K, N, tile_n, splits, chunks_per_split, dtype, stream
+    "mmt_wo_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -213,6 +214,8 @@ def ptxas_report(source: str) -> dict:
 def library() -> ctypes.CDLL:
     """The compiled kernel library, built on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             out = library_path()
@@ -236,5 +239,34 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")
 
 
+# Scratch of the kernels that finish a reduction inside their launch (K9's
+# split-K sum, K4 / K8's split merge): int32 counters that the kernels leave
+# zero, and float32 workspace, one buffer of each per (device, stream), grown
+# on demand. Launches on one stream run in order, so the kernels share them.
+_counters: dict = {}
+_workspace: dict = {}
+
+
+def zeroed_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device`` for ``stream``'s launches."""
+    buf = _counters.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[(device.index, stream)] = buf
+    return buf
+
+
+def workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` float32 values of scratch on ``device`` for ``stream``."""
+    buf = _workspace.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=device)
+        _workspace[(device.index, stream)] = buf
+    return buf
+
+
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, by PyTorch's own
+    getter (no ``Stream`` object is built: that costs microseconds a call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,11 +1,10 @@
-// The merge pass of the split-key (flash-decoding) attention kernels K4, K6
-// and K8: each block of the first pass left, for its split of one (slot, kv
-// head)'s keys, a float32 record of `rows` maxima, `rows` sums and the
-// `rows` x D unnormalised accumulator. One block per (kv head, slot) merges
-// the splits and normalises:
-//   o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,   M = max_s m_s,
-// with 2 in place of e when the first pass kept its scores in the base-2
-// domain (kBase2: K4 and K8; K6 keeps natural-base scores).
+// The merge pass of the split-key (flash-decoding) ring verify attention K6
+// (K4 and K8 merge inside their own launch, ring_decode.cu): each block of
+// the first pass left, for its split of one (slot, kv head)'s keys, a
+// float32 record of `rows` maxima, `rows` sums and the `rows` x D
+// unnormalised accumulator. One block per (kv head, slot) merges the splits
+// and normalises:
+//   o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,   M = max_s m_s.
 // A split that saw no valid key for a row has m = -inf and weighs 0; a row
 // with no valid key at all is written as zeros.
 #pragma once
@@ -15,7 +14,7 @@
 namespace mmt {
 namespace {  // each kernel file gets its own copy
 
-template <typename T, bool kBase2 = false>
+template <typename T>
 __global__ void __launch_bounds__(128)
 split_merge_kernel(const float* __restrict__ partial, T* __restrict__ o, int Hkv, int rows,
                    int D, int n_splits) {
@@ -34,7 +33,7 @@ split_merge_kernel(const float* __restrict__ partial, T* __restrict__ o, int Hkv
       for (int s = 0; s < n_splits; ++s) {
         const float* part = base + s * stride;
         // 0 for a split that saw no key (max -inf)
-        const float w = kBase2 ? exp2f(part[r] - m) : expf(part[r] - m);
+        const float w = expf(part[r] - m);
         l = fmaf(part[rows + r], w, l);
         a = fmaf(part[2 * rows + i], w, a);
       }

@@ -100,23 +100,18 @@ def paged_attention(
         return paged_attention_plain(q, k_pages, v_pages, page_table, lengths, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
-    if H // Hkv > 16 or D % 2:
-        raise ValueError(f"the kernel takes an even head dim and at most 16 query "
-                         f"heads per kv head, got D={D}, {H // Hkv} heads")
-    if not all(t.is_contiguous() for t in (q, k_pages, v_pages)):
-        raise ValueError("q and pools must be contiguous")
+    _check_decode_shape(B, H, Hkv, D, P, q.dtype)
+    _check_cuda_tensors(q, k_pages, v_pages)
     _check_cuda_ints(page_table, lengths)
 
     lib = _build.library()
-    # splits of each slot's keys, merged through float32 scratch as in K4
-    n_splits = -(-(pm * P) // lib.mmt_ring_decode_split_keys())
-    partial = torch.empty((B, Hkv, n_splits, H // Hkv, D + 2), dtype=torch.float32,
-                          device=q.device)
+    work, counters, max_splits = _decode_scratch(lib, q, B, Hkv, H // Hkv, D, pm * P)
     o = torch.empty_like(q)
     code = lib.mmt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), partial.data_ptr(), o.data_ptr(), B, H, Hkv, D, n_pages, P, pm,
-        float(sm_scale), n_splits, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+        lengths.data_ptr(), work.data_ptr(), counters.data_ptr(), o.data_ptr(), B, H, Hkv, D,
+        n_pages, P, pm, float(sm_scale), max_splits, _build.DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device))
     _build.check("paged_attention", code)
     launches["paged_attention"] += 1
     return o
@@ -191,6 +186,45 @@ def _check_cuda_ints(*ints):
         raise ValueError("page tables and lengths must be contiguous int32")
 
 
+# K4 and K8: the head dims (a multiple of DECODE_HEAD_DIM_STEP[dtype], up to
+# DECODE_MAX_HEAD_DIM), query heads per kv head and slots the kernel takes.
+DECODE_HEAD_DIM_STEP = {torch.bfloat16: 16, torch.float32: 4}
+DECODE_MAX_HEAD_DIM = 128
+DECODE_MAX_GROUP = 16
+DECODE_MAX_SLOTS = 1024
+
+
+def _check_decode_shape(B, H, Hkv, D, P, dtype):
+    step = DECODE_HEAD_DIM_STEP[dtype]
+    if (D % step or D > DECODE_MAX_HEAD_DIM or H // Hkv > DECODE_MAX_GROUP
+            or B > DECODE_MAX_SLOTS):
+        raise ValueError(f"the kernel takes an even head dim (a multiple of {step} in {dtype}, "
+                         f"up to {DECODE_MAX_HEAD_DIM}), at most {DECODE_MAX_GROUP} query "
+                         f"heads per kv head and {DECODE_MAX_SLOTS} slots, got D={D}, "
+                         f"{H // Hkv} heads, {B} slots")
+    if P % 8 or (P % 64 and 64 % P):
+        raise ValueError(f"the kernel takes pages of a multiple of 8 rows that divides 64 or "
+                         f"that 64 divides, got {P}")
+
+
+def _check_cuda_tensors(*tensors):
+    # the kernel copies rows with bulk copies: 16-byte aligned, contiguous
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("q, pool and ring must be contiguous and 16-byte aligned")
+
+
+def _decode_scratch(lib, q, B, Hkv, group, D, max_keys):
+    """The K4 / K8 merge's float32 workspace (one record of ``group`` maxima,
+    sums and accumulator rows per (slot, kv head, split); a split takes at
+    least ``mmt_ring_decode_split_keys()`` keys of the ``max_keys`` a slot
+    may have), its zeroed counters (one a (slot, kv head)) and the split
+    bound."""
+    max_splits = max(1, -(-max_keys // lib.mmt_ring_decode_split_keys()))
+    stream = _build.stream_handle(q.device)
+    work = _build.workspace(q.device, stream, B * Hkv * max_splits * group * (D + 2))
+    return work, _build.zeroed_counters(q.device, stream, B * Hkv), max_splits
+
+
 def ring_decode_attention(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     k_ring: torch.Tensor, v_ring: torch.Tensor, page_table: torch.Tensor,
@@ -225,25 +259,18 @@ def ring_decode_attention(
             layer_index, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"ring_decode_attention runs on cpu or cuda, not {q.device}")
-    if H // Hkv > 16 or D % 2:
-        raise ValueError(f"the kernel takes an even head dim and at most 16 query "
-                         f"heads per kv head, got D={D}, {H // Hkv} heads")
-    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, k_ring, v_ring)):
-        raise ValueError("q, pool and ring must be contiguous")
+    _check_decode_shape(B, H, Hkv, D, P, q.dtype)
+    _check_cuda_tensors(q, k_pages, v_pages, k_ring, v_ring)
     _check_cuda_ints(page_table, pages_len, lengths)
 
     lib = _build.library()
-    # the kernel cuts each slot's keys into splits and merges their partial
-    # softmax sums through this float32 scratch
-    n_splits = -(-(pm * P + T) // lib.mmt_ring_decode_split_keys())
-    partial = torch.empty((B, Hkv, n_splits, H // Hkv, D + 2), dtype=torch.float32,
-                          device=q.device)
+    work, counters, max_splits = _decode_scratch(lib, q, B, Hkv, H // Hkv, D, pm * P + T)
     o = torch.empty_like(q)
     code = lib.mmt_ring_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_ring.data_ptr(),
         v_ring.data_ptr(), page_table.data_ptr(), pages_len.data_ptr(),
-        lengths.data_ptr(), partial.data_ptr(), o.data_ptr(),
-        B, H, Hkv, D, n_pages, P, pm, T, int(layer_index), float(sm_scale), n_splits,
+        lengths.data_ptr(), work.data_ptr(), counters.data_ptr(), o.data_ptr(),
+        L, B, H, Hkv, D, n_pages, P, pm, T, int(layer_index), float(sm_scale), max_splits,
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     _build.check("ring_decode_attention", code)
     launches["ring_decode_attention"] += 1

@@ -36,6 +36,7 @@ launches = {"wo_matmul": 0, "w8a8_matmul": 0}
 K_CHUNK = 64      # K values per pipeline stage of the kernel (K must be a multiple)
 BLOCK_N = 128     # output columns per block of the bf16 kernel
 MIN_CHUNKS = 4    # fewest K chunks a split-K slice takes
+TOKEN_TILES = (8, 16, 32, 64)  # token tiles at decode and verify; 128 and 256 above
 
 
 def wo_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
@@ -51,16 +52,39 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def token_tile(M: int) -> int:
+    """Tokens a tile of the bf16 kernel (wgmma's N): the smallest of 8, 16,
+    32 and 64 that holds M, else 128 up to 128 tokens and 256 above."""
+    for tile in TOKEN_TILES:
+        if M <= tile:
+            return tile
+    return 128 if M <= 128 else 256
+
+
+UNIT_COST = 6  # a work unit's fixed cost (fill, drain, split sum), in K chunks
+
+
+@functools.lru_cache(maxsize=None)
 def split_k(M: int, K: int, N: int, sm_count: int) -> tuple:
-    """(splits, chunks per split) of the bf16 kernel's K loop: enough
-    blocks for two per SM, each split at least ``MIN_CHUNKS`` chunks of
-    K; the splits are reduced in a second, deterministic pass."""
+    """(splits, chunks per split) of the bf16 kernel's K loop. The kernel's
+    persistent blocks, one an SM, take the work units (token tile, column
+    tile, split) in turns, so a call lasts about as many rounds of units as
+    the busiest SM runs, each round a unit's K chunks plus its fixed cost
+    (``UNIT_COST`` chunk times, fitted to a sweep of split counts on the
+    H100): the split count (each split at least ``MIN_CHUNKS`` chunks of K,
+    none empty) minimises rounds x (chunks + ``UNIT_COST``); ties keep
+    fewer splits."""
     chunks = K // K_CHUNK
-    bm = 16 if M <= 16 else 64
-    blocks = -(-M // bm) * -(-N // BLOCK_N)
-    want = min(-(-2 * sm_count // blocks), max(1, chunks // MIN_CHUNKS))
-    per = -(-chunks // max(1, want))
-    return -(-chunks // per), per
+    tiles = -(-M // token_tile(M)) * -(-N // BLOCK_N)
+    best = None
+    for want in range(1, max(1, chunks // MIN_CHUNKS) + 1):
+        per = -(-chunks // want)
+        splits = -(-chunks // per)
+        cost = -(-tiles * splits // sm_count) * (per + UNIT_COST)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
 
 
 def wo_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
@@ -72,35 +96,43 @@ def wo_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Te
         raise ValueError(f"wo_matmul: w_q {tuple(w_q.shape)} {w_q.dtype} is not (N, {K}) int8")
     if w_s.numel() != N:
         raise ValueError(f"wo_matmul: w_s has {w_s.numel()} scales for {N} columns")
-    devices = {x.device, w_q.device, w_s.device}
-    if len(devices) != 1:
-        raise ValueError(f"wo_matmul: tensors lie on several devices: {devices}")
     device = x.device
+    if w_q.device != device or w_s.device != device:
+        raise ValueError(f"wo_matmul: tensors lie on several devices: "
+                         f"{ {device, w_q.device, w_s.device} }")
     if device.type == "cpu":
         return wo_matmul_plain(x, w_q, w_s)
     if device.type != "cuda":
         raise ValueError(f"wo_matmul runs on cpu or cuda, not {device}")
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"wo_matmul takes float32 or bfloat16 activations, got {x.dtype}")
-    if K % K_CHUNK or not w_q.is_contiguous():
-        raise ValueError(f"wo_matmul: K={K} must be a multiple of {K_CHUNK} and w_q contiguous")
-    x2 = x.reshape(-1, K).contiguous()
-    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte vectors
-        x2 = x2.clone()
+    if K % K_CHUNK or not w_q.is_contiguous() or w_q.data_ptr() % 16:
+        raise ValueError(f"wo_matmul: K={K} must be a multiple of {K_CHUNK} and w_q "
+                         f"contiguous and 16-byte aligned")
+    x2 = x.reshape(-1, K)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:  # the kernel reads 16-byte rows by TMA
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     M = x2.shape[0]
-    w_s = w_s.reshape(N).float().contiguous()
+    if w_s.dtype != torch.float32 or not w_s.is_contiguous():
+        w_s = w_s.reshape(N).float().contiguous()
     out = torch.empty(M, N, dtype=x.dtype, device=device)
     if M == 0:
         return out.reshape(*lead, N)
-    splits, per = (1, K // K_CHUNK)
+    stream = _build.stream_handle(device)
+    tile, splits, per = 0, 1, K // K_CHUNK
+    work = counters = None
     if x.dtype == torch.bfloat16:
+        tile = token_tile(M)
         splits, per = split_k(M, K, N, _sm_count(device.index or 0))
-    partial = (torch.empty(splits, M, N, dtype=torch.float32, device=device)
-               if splits > 1 else None)
+        if splits > 1:
+            tiles = -(-M // tile) * -(-N // BLOCK_N)
+            work = _build.workspace(device, stream, tiles * splits * tile * BLOCK_N)
+            counters = _build.zeroed_counters(device, stream, tiles)
     code = _build.library().mmt_wo_matmul(
         x2.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), M, K, N, splits, per,
-        _build.DTYPE_CODES[x.dtype], _build.stream_handle(device))
+        None if work is None else work.data_ptr(),
+        None if counters is None else counters.data_ptr(), M, K, N, tile, splits, per,
+        _build.DTYPE_CODES[x.dtype], stream)
     _build.check("wo_matmul", code)
     launches["wo_matmul"] += 1
     return out.reshape(*lead, N)

@@ -135,6 +135,23 @@ def test_ring_decode_kernel(gen, dtype, group, Hkv, D, P):
         _assert_close(got, paged.ring_decode_attention_plain(*args, layer), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [16, 128])
+def test_ring_decode_kernel_ragged_slots(gen, dtype, P):
+    """Slots whose lengths differ by more than four pages: one empty, one of
+    a single key, one that fills its table, so the kernel's splits differ
+    from slot to slot; two calls give the same bits."""
+    pm = 8
+    pages_len = [0, 1, 7 * P + 5, 3, 6 * P, 2 * P - 1, 8 * P - 16, 5]
+    gen_rows = [0, 2, 15, 0, 9, 4, 15, 11]
+    args = _paged(gen, dtype, 8, 32, 8, 128, P, pm, pages_len, gen_rows)
+    before = paged.launches["ring_decode_attention"]
+    got = paged.ring_decode_attention(*args, 1)
+    assert paged.launches["ring_decode_attention"] == before + 1
+    _assert_close(got, paged.ring_decode_attention_plain(*args, 1), dtype)
+    assert torch.equal(got, paged.ring_decode_attention(*args, 1))
+
+
 def test_ring_decode_kernel_skips_poisoned_rows(gen):
     """NaN in rows outside a slot's valid range never reaches its output."""
     q, kp, vp, rk, rv, table, plen, lengths = _paged(
@@ -998,6 +1015,10 @@ def _wo_case(gen, dtype, M, K, N):
     (13, 1024, 385), (16, 4096, 4096),  # split K, ragged N and M
     (17, 512, 4096), (40, 448, 6144),   # 64-row tiles (verify), K of 7 chunks
     (300, 192, 200),                   # several m-blocks, ragged
+    # token tiles of 128 and 256 (prefill) with ragged M and N, N % 8 != 0
+    (65, 256, 200), (128, 1024, 1000), (129, 512, 4100), (257, 192, 385), (600, 640, 520),
+    (40, 4096, 28672),                 # verify at the gate-up width
+    (1, 14336, 4096), (8, 14336, 4096),  # decode at the down projection's K, split K
 ])
 def test_wo_matmul_kernel(gen, dtype, M, K, N):
     tw, x, wq, ws = _wo_case(gen, dtype, M, K, N)
@@ -1015,6 +1036,22 @@ def test_wo_matmul_kernel_is_deterministic_and_takes_leading_dims(gen):
     b = tw.wo_matmul(x.reshape(2, 4, 4096), wq, ws)
     torch.cuda.synchronize()
     assert b.shape == (2, 4, 4096) and torch.equal(a, b.reshape(8, 4096))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 6144), (40, 4096, 6144), (64, 14336, 4096),
+                                   (100, 4096, 4096), (8, 14336, 4096), (3, 1024, 385)])
+def test_wo_matmul_kernel_split_sum_is_deterministic(gen, M, K, N):
+    """Shapes whose K splits are summed inside the launch: two calls give
+    the same bits, and the tile counters are left zero for the next call."""
+    tw, x, wq, ws = _wo_case(gen, torch.bfloat16, M, K, N)
+    assert tw.split_k(M, K, N, torch.cuda.get_device_properties(0).multi_processor_count)[0] > 1
+    a = tw.wo_matmul(x, wq, ws)
+    b = tw.wo_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _assert_close(a, tw.wo_matmul_plain(x, wq, ws), torch.bfloat16)
+    from multimeditron_torch import _build
+    assert not any(c.any() for c in _build._counters.values())
 
 
 def test_wo_matmul_kernel_refuses_what_it_does_not_take(gen):

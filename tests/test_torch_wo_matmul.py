@@ -66,17 +66,41 @@ def test_wo_matmul_keeps_leading_dims_and_refuses_bad_weights():
         tw.wo_matmul(tx, tq, ts[:5])
 
 
+LLAMA_8B = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]
+
+
 def test_split_k_fills_the_card_and_covers_k():
-    # Llama-3.1-8B decode: o / down at N = 4,096 split K; the lm_head does not
-    for M, K, N in [(8, 4096, 4096), (8, 14336, 4096), (8, 4096, 6144), (8, 4096, 28672),
-                    (40, 4096, 4096), (8, 4096, 128256), (4096, 4096, 4096), (3, 64, 100)]:
+    # every Llama-3.1-8B projection (qkv, o, gate-up, down, lm_head) at decode,
+    # verify, a ragged prefill tail and the W8A16 prefill, and a toy shape
+    for M, (K, N) in [(M, kn) for M in (1, 8, 40, 64, 100, 4096) for kn in LLAMA_8B] + \
+            [(3, (64, 100))]:
         splits, per = tw.split_k(M, K, N, 132)
         chunks = K // tw.K_CHUNK
-        assert (splits - 1) * per < chunks <= splits * per
+        assert (splits - 1) * per < chunks <= splits * per  # the splits cover K, none empty
         assert per >= min(tw.MIN_CHUNKS, chunks)
-        if N == 128256 or M == 4096:
+        tiles = -(-M // tw.token_tile(M)) * -(-N // tw.BLOCK_N)
+        if tiles >= 132:  # the column tiles alone fill the card: no split
             assert splits == 1
-    assert tw.split_k(8, 4096, 4096, 132)[0] > 1
+        # no other split count (of at least MIN_CHUNKS chunks) has fewer
+        # rounds x (chunks + UNIT_COST) on 132 SMs
+        cost = -(-tiles * splits // 132) * (per + tw.UNIT_COST)
+        for want in range(1, max(1, chunks // tw.MIN_CHUNKS) + 1):
+            p = -(-chunks // want)
+            assert -(-tiles * -(-chunks // p) // 132) * (p + tw.UNIT_COST) >= cost
+    # o and down at decode split K to fill the card; the lm_head does not
+    assert tw.split_k(8, 4096, 4096, 132)[0] > 1 and tw.split_k(8, 14336, 4096, 132)[0] > 1
+    assert tw.split_k(8, 4096, 128256, 132)[0] == 1
+
+
+def test_token_tile_holds_m_in_the_fewest_tokens():
+    for M in range(1, 600):
+        tile = tw.token_tile(M)
+        assert tile in (8, 16, 32, 64, 128, 256)
+        if M <= 128:  # one token tile holds M, and no smaller tile would
+            assert M <= tile and (tile == 8 or M > tile // 2 or tile == 128 and M > 64)
+        else:
+            assert tile == 256
+    assert [tw.token_tile(M) for M in (1, 8, 9, 40, 64, 65, 4096)] == [8, 8, 16, 64, 64, 128, 256]
 
 
 def test_quantize_rows_bitwise_equal_to_jax():
@@ -113,3 +137,4 @@ def test_w8a8_matmul_within_one_ulp_of_jax(out_dtype):
     if out_dtype == "bfloat16":
         ulp = ulp * 2.0 ** 16  # bf16 keeps 16 fewer mantissa bits
     assert (np.abs(got - want) <= ulp).all()
+
