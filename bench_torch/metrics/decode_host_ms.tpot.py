@@ -1,0 +1,9 @@
+"""decode_host_ms.tpot: Decode step: mean host time of a decode step that ran
+the model (its span less its waits on the device), over the window's steps.
+Moves tpot_p90_ms. Read from the program's spans (progtrace.py)."""
+
+import progtrace
+
+
+def read(run):
+    return progtrace.decode_host_ms(run)

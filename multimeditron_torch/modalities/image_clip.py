@@ -29,6 +29,7 @@ from multimeditron_torch.ops.vit_int8_fused import (
     pack_vit_int8_fused,
     smooth_vit_params,
 )
+from multimeditron_torch.profiling import tracer
 
 # The HF CLIP / SigLIP image-processor statistics (as in the JAX package's
 # data/image_processing.py, which imports PIL and so stays off this path).
@@ -101,7 +102,8 @@ class ImageModality(BaseModality):
 
     def encode(self, values: torch.Tensor) -> torch.Tensor:
         tower = self.embedder if self.embedder_q is None else self.embedder_q
-        return self.projector(tower(self._normalize_wire(values), drop_cls=True))
+        with tracer.span("tower.encode", images=values.shape[0]):
+            return self.projector(tower(self._normalize_wire(values), drop_cls=True))
 
     @torch.no_grad()
     def quantize_params(self, calibration_values: Optional[torch.Tensor] = None,

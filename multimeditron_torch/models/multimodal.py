@@ -12,6 +12,7 @@ import dataclasses
 import enum
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -20,6 +21,7 @@ from multimeditron_torch.modalities import AutoModality
 from multimeditron_torch.modalities.base import BaseModalityConfig
 from multimeditron_torch.models.common import cross_entropy_loss
 from multimeditron_torch.models.llama import Llama, LlamaConfig
+from multimeditron_torch.profiling import tracer
 
 
 class TrainingMode(str, enum.Enum):
@@ -138,7 +140,8 @@ class MultimodalModel(nn.Module):
                              position_ids=batch.get("position_ids"), remat=remat)
         loss = None
         if batch.get("labels") is not None:
-            loss = cross_entropy_loss(logits, batch["labels"])
+            with tracer.span("train.loss"):
+                loss = cross_entropy_loss(logits, batch["labels"])
         return logits, loss
 
     def trainable_mask(self, mode: TrainingMode) -> Dict[str, bool]:
@@ -156,6 +159,22 @@ class MultimodalModel(nn.Module):
             for name, flag in mod.trainable_mask(train_embedder, train_proj).items():
                 mask[f"modalities.{mtype}.{name}"] = flag
         return mask
+
+
+def mm_item_count(mm_inputs: Optional[Dict[str, Dict[str, Any]]], rows: int) -> Optional[int]:
+    """Modality items (images) of a collated batch of ``rows`` rows that
+    :meth:`MultimodalModel.embed` splices into a row: an item slot whose
+    ``batch_idx`` is ``rows`` or more is unused. None for a pack already on
+    the device, which is read only by the splice itself."""
+    n = 0
+    for pack in (mm_inputs or {}).values():
+        values, bi = pack["values"], pack["batch_idx"]
+        if isinstance(bi, torch.Tensor) and bi.device.type != "cpu":
+            return None
+        if len(values):
+            bi = np.asarray(bi)
+            n += int((bi[:: len(bi) // len(values)] < rows).sum())
+    return n
 
 
 @torch.no_grad()

@@ -53,6 +53,12 @@ downloads one token matrix per chunk. Each live decode or verify step costs
 one host sync (``active.any()``), where the JAX loop skips dead steps
 in-graph.
 
+Each phase of a plain step (admission, each prefill call and its parts,
+forks, the decode chunk, each decode step and its parts, the fold, the
+readback and the host-mirror replay) records a span in
+``profiling.tracer``, with counters from the host mirrors; the speculative
+path records only ``engine.step``. The tracer is off unless enabled.
+
 Not ported yet (``NotImplementedError``): tensor parallelism or an
 external mesh, and ``attn_impl``.
 """
@@ -68,8 +74,9 @@ import torch
 
 from multimeditron_torch.models.llama import init_kv_cache, init_paged_kv_cache
 from multimeditron_torch.models.llama_quant import is_quantized, quantize_llama
-from multimeditron_torch.models.multimodal import MultimodalModel
+from multimeditron_torch.models.multimodal import MultimodalModel, mm_item_count
 from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
+from multimeditron_torch.profiling import tracer
 from multimeditron_torch.serve import prng
 
 PAGED_CACHE_KEYS = ("k", "v", "ring_k", "ring_v", "length", "page_table", "pages_length")
@@ -379,34 +386,38 @@ class ServingEngine:
         the last logits without re-running the prompt."""
         llm_cfg = self.model.config.llm
         st, n = self.state, input_ids.shape[0]
-        embeds = self.model.embed(input_ids, mm_inputs)
+        with tracer.span("prefill.embed"):
+            embeds = self.model.embed(input_ids, mm_inputs)
         local = init_kv_cache(llm_cfg, n, bucket, dtype=st["k"].dtype, device=self.device)
-        hidden, local = self.llm(inputs_embeds=embeds, attention_mask=attention_mask,
-                                 kv_cache=local, prefill=True, return_hidden=True,
-                                 w8a8_min_rows=self._w8a8_gate(n * bucket))
+        with tracer.span("prefill.decoder"):
+            hidden, local = self.llm(inputs_embeds=embeds, attention_mask=attention_mask,
+                                     kv_cache=local, prefill=True, return_hidden=True,
+                                     w8a8_min_rows=self._w8a8_gate(n * bucket))
         lengths = attention_mask.sum(dim=-1).to(torch.int32)
         L, _, Hkv, _, Dh = local["k"].shape
-        for name in ("k", "v"):
-            if not self.paged:
-                # a bucket can be wider than the slot's row: its prefix is
-                # copied (the prompt itself is shorter than max_seq_len)
-                width = min(bucket, st[name].shape[3])
-                st[name][:, slot_ids, :, :width] = local[name][:, :, :, :width]
-                continue
-            P = self.page_size
-            if bucket >= P:
-                bp = bucket // P
-                pages = (local[name].reshape(L, n, Hkv, bp, P, Dh)
-                         .permute(0, 2, 1, 3, 4, 5).reshape(L, Hkv, n * bp, P, Dh))
-                # unused bucket pages all go to trash page 0: duplicate targets
-                # there are harmless because nothing reads page 0 as data
-                st[name].index_copy_(2, dest, pages)
-            else:
-                # a bucket smaller than a page fills the first rows of one page
-                st[name][:, :, dest, :bucket] = local[name].permute(0, 2, 1, 3, 4)
-        last_h = hidden[torch.arange(n, device=self.device), lengths.long() - 1]
-        last_logits = self.llm.lm_head_logits(last_h)
-        first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
+        with tracer.span("prefill.cache_write"):
+            for name in ("k", "v"):
+                if not self.paged:
+                    # a bucket can be wider than the slot's row: its prefix is
+                    # copied (the prompt itself is shorter than max_seq_len)
+                    width = min(bucket, st[name].shape[3])
+                    st[name][:, slot_ids, :, :width] = local[name][:, :, :, :width]
+                    continue
+                P = self.page_size
+                if bucket >= P:
+                    bp = bucket // P
+                    pages = (local[name].reshape(L, n, Hkv, bp, P, Dh)
+                             .permute(0, 2, 1, 3, 4, 5).reshape(L, Hkv, n * bp, P, Dh))
+                    # unused bucket pages all go to trash page 0: duplicate
+                    # targets there are harmless (nothing reads page 0 as data)
+                    st[name].index_copy_(2, dest, pages)
+                else:
+                    # a bucket smaller than a page fills the first rows of one page
+                    st[name][:, :, dest, :bucket] = local[name].permute(0, 2, 1, 3, 4)
+        with tracer.span("prefill.sample"):
+            last_h = hidden[torch.arange(n, device=self.device), lengths.long() - 1]
+            last_logits = self.llm.lm_head_logits(last_h)
+            first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
         self._set_slots(slot_ids, lengths, first, budgets, temps, top_ps, page_rows,
                         input_ids)
         return lengths, first, last_logits
@@ -466,40 +477,54 @@ class ServingEngine:
             while start < plen:
                 c = min(W, plen - start)
                 bucket = next(b for b in self.cfg.prefill_buckets if c <= b)
-                # a chunk's padding past the slab's end is dropped by the
-                # cache write, as JAX's out-of-range writes are
-                chunk_ids = np.zeros((1, bucket), np.int64)
-                chunk_ids[0, :c] = ids[start: start + c]
-                chunk_mask = np.zeros((1, bucket), np.int32)
-                chunk_mask[0, :c] = 1
-                seed = self._next_seed()
-                embeds = self.model.embed(torch.from_numpy(chunk_ids).to(dev),
-                                          self._chunk_mm(mm, start, c, bucket))
-                cache = {"k": slab["k"], "v": slab["v"],
-                         "length": torch.tensor([start], dtype=torch.int32, device=dev)}
-                hidden, _ = llm(inputs_embeds=embeds,
-                                attention_mask=torch.from_numpy(chunk_mask).to(dev),
-                                kv_cache=cache, prefill=True, return_hidden=True,
-                                w8a8_min_rows=self._w8a8_gate(bucket))
-                last_logits = llm.lm_head_logits(hidden[:, c - 1])
-                first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
-                self.n_prefill_calls += 1
-                start += c
-            self._last_prefill_logits = last_logits
-            page_row = None
-            if self.paged:
-                # fold the prompt's KV into the page pool once
-                L, _, Hkv, _, Dh = slab["k"].shape
-                dest = torch.from_numpy(self.page_table[slot].astype(np.int64)).to(dev)
-                for name in ("k", "v"):
-                    self.state[name].index_copy_(2, dest, slab[name][:, 0].reshape(
-                        L, Hkv, self.pages_max, self.page_size, Dh))
-                page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
-            self._set_slots(
-                torch.tensor([slot], device=dev), torch.tensor([plen], dtype=torch.int32, device=dev),
-                first, torch.tensor([req.max_new_tokens], dtype=torch.int32, device=dev),
-                temps, top_ps, page_row, torch.from_numpy(ids[None].astype(np.int32)).to(dev))
-            first = int(first.cpu()[0])
+                with tracer.span("engine.prefill") as sp:
+                    if sp:
+                        sp.set(rids=[req.request_id], tokens=[c],
+                               images=[mm_item_count(mm, 1)])
+                    # a chunk's padding past the slab's end is dropped by the
+                    # cache write, as JAX's out-of-range writes are
+                    chunk_ids = np.zeros((1, bucket), np.int64)
+                    chunk_ids[0, :c] = ids[start: start + c]
+                    chunk_mask = np.zeros((1, bucket), np.int32)
+                    chunk_mask[0, :c] = 1
+                    seed = self._next_seed()
+                    with tracer.span("prefill.embed"):
+                        embeds = self.model.embed(torch.from_numpy(chunk_ids).to(dev),
+                                                  self._chunk_mm(mm, start, c, bucket))
+                    cache = {"k": slab["k"], "v": slab["v"],
+                             "length": torch.tensor([start], dtype=torch.int32, device=dev)}
+                    with tracer.span("prefill.decoder"):
+                        hidden, _ = llm(inputs_embeds=embeds,
+                                        attention_mask=torch.from_numpy(chunk_mask).to(dev),
+                                        kv_cache=cache, prefill=True, return_hidden=True,
+                                        w8a8_min_rows=self._w8a8_gate(bucket))
+                    with tracer.span("prefill.sample"):
+                        last_logits = llm.lm_head_logits(hidden[:, c - 1])
+                        first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
+                    self.n_prefill_calls += 1
+                    start += c
+                    if start < plen:
+                        continue
+                    # the last chunk also folds the prompt into the page pool
+                    # once and reads its first token back
+                    self._last_prefill_logits = last_logits
+                    page_row = None
+                    if self.paged:
+                        with tracer.span("prefill.cache_write"):
+                            L, _, Hkv, _, Dh = slab["k"].shape
+                            dest = torch.from_numpy(
+                                self.page_table[slot].astype(np.int64)).to(dev)
+                            for name in ("k", "v"):
+                                self.state[name].index_copy_(2, dest, slab[name][:, 0].reshape(
+                                    L, Hkv, self.pages_max, self.page_size, Dh))
+                        page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
+                    self._set_slots(
+                        torch.tensor([slot], device=dev),
+                        torch.tensor([plen], dtype=torch.int32, device=dev), first,
+                        torch.tensor([req.max_new_tokens], dtype=torch.int32, device=dev),
+                        temps, top_ps, page_row,
+                        torch.from_numpy(ids[None].astype(np.int32)).to(dev))
+                    first = int(first.cpu()[0])
         self._admit_on_host(req, slot, plen, first, time.time())
 
     def _admit_on_host(self, req: Request, slot: int, length: int, first: int,
@@ -575,7 +600,7 @@ class ServingEngine:
             self._prefill_group([primary], [slot0], self._request_signature(primary),
                                 reserve=False)
         dst_pages = [int(self.page_table[s, n_full]) for s in fork_slots]
-        with torch.inference_mode():
+        with tracer.span("engine.fork"), torch.inference_mode():
             first = self._fork(fork_slots, src_page, dst_pages, plen, forks,
                                self._next_seed(), slot0).cpu().numpy()
         now = time.time()
@@ -599,33 +624,41 @@ class ServingEngine:
         rows = []
         for _ in range(chunk):
             key, sub = prng.split(key) if self.cfg.do_sample else (key, None)
-            if not bool(active.any()):  # every slot is done: skip the step
+            with tracer.span("decode.step") as sp:
+                with tracer.span("decode.wait"):
+                    ran = bool(active.any())
+                sp.set(ran=ran)
+                if not ran:  # every slot is done: skip the step
+                    rows.append(tokens)
+                    continue
+                self.n_decode_steps += 1
+                with tracer.span("decode.forward"):
+                    logits, new_cache = llm(inputs_embeds=llm.embed(tokens)[:, None, :],
+                                            kv_cache=cache)
+                with tracer.span("decode.sample"):
+                    nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"], sub)
+                    nxt = torch.where(active, nxt, eos)
+                # only active slots advance their cache length
+                cache["length"] = torch.where(active, new_cache["length"], cache["length"])
+                # the token just produced consumed one unit of budget
+                remaining = remaining - active.to(torch.int32)
+                active = active & (nxt != eos) & (remaining > 0) & (cache["length"] < max_len)
+                tokens = nxt
                 rows.append(tokens)
-                continue
-            self.n_decode_steps += 1
-            logits, new_cache = llm(inputs_embeds=llm.embed(tokens)[:, None, :],
-                                    kv_cache=cache)
-            nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"], sub)
-            nxt = torch.where(active, nxt, eos)
-            # only active slots advance their cache length
-            cache["length"] = torch.where(active, new_cache["length"], cache["length"])
-            # the token just produced consumed one unit of budget
-            remaining = remaining - active.to(torch.int32)
-            active = active & (nxt != eos) & (remaining > 0) & (cache["length"] < max_len)
-            tokens = nxt
-            rows.append(tokens)
-        if self.paged:
-            # absorb the chunk's ring rows into the page pool; rows past a
-            # slot's final length are not written
-            fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
-                                 st["page_table"], st["pages_length"], chunk, cache["length"])
-            st["pages_length"].copy_(cache["length"])
-        self.n_decode_chunks += 1
-        toks = torch.stack(rows)  # before st["tokens"], which rows may hold, changes
-        st["length"].copy_(cache["length"])
-        st["tokens"].copy_(tokens)
-        st["active"].copy_(active)
-        st["remaining"].copy_(remaining)
+        with tracer.span("decode.fold"):
+            if self.paged:
+                # absorb the chunk's ring rows into the page pool; rows past a
+                # slot's final length are not written
+                fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
+                                     st["page_table"], st["pages_length"], chunk,
+                                     cache["length"])
+                st["pages_length"].copy_(cache["length"])
+            self.n_decode_chunks += 1
+            toks = torch.stack(rows)  # before st["tokens"], which rows may hold, changes
+            st["length"].copy_(cache["length"])
+            st["tokens"].copy_(tokens)
+            st["active"].copy_(active)
+            st["remaining"].copy_(remaining)
         st["seed"] = _wrap_int32(st["seed"] + 1)
         return toks
 
@@ -883,49 +916,54 @@ class ServingEngine:
     def _prefill_group(self, group: List[Request], slots: List[int], sig,
                        reserve: bool = True) -> None:
         bucket, _ = sig
-        n, dev = len(group), self.device
-        input_ids = np.concatenate([self._pad_to(r.batch["input_ids"], bucket) for r in group])
-        mask = np.concatenate([self._pad_to(r.batch["attention_mask"], bucket) for r in group])
-        mm = None
-        if group[0].batch.get("mm_inputs"):
-            mm = {}
-            for mtype in group[0].batch["mm_inputs"]:
-                packs = [r.batch["mm_inputs"][mtype] for r in group]
-                values = np.concatenate([np.asarray(p["values"]) for p in packs])
-                # local batch row j stays j; padded slots (>= 1 in a B=1
-                # request batch) map to n, which the splice drops
-                batch_idx = np.concatenate([
-                    np.where(np.asarray(p["batch_idx"]) < 1, j, n).astype(np.int32)
-                    for j, p in enumerate(packs)])
-                token_pos = np.concatenate(
-                    [np.asarray(p["token_pos"]) for p in packs]).astype(np.int32)
-                mm[mtype] = {
-                    "values": torch.from_numpy(values).to(dev),
-                    "batch_idx": torch.from_numpy(batch_idx).to(dev),
-                    "token_pos": torch.from_numpy(token_pos).to(dev),
-                }
-        if not self.paged:
-            dest = page_rows = None  # each request's row goes to its slot
-        else:
-            if reserve:
-                for req, slot in zip(group, slots):
-                    self._reserve_pages(req, slot)
-            dest = self._bucket_page_ids(slots, bucket).astype(np.int64)
-            page_rows = self.page_table[np.asarray(slots)]
+        with tracer.span("engine.prefill") as sp:
+            if sp:
+                sp.set(rids=[r.request_id for r in group],
+                       tokens=[int(np.asarray(r.batch["attention_mask"]).sum()) for r in group],
+                       images=[mm_item_count(r.batch.get("mm_inputs"), 1) for r in group])
+            n, dev = len(group), self.device
+            input_ids = np.concatenate([self._pad_to(r.batch["input_ids"], bucket) for r in group])
+            mask = np.concatenate([self._pad_to(r.batch["attention_mask"], bucket) for r in group])
+            mm = None
+            if group[0].batch.get("mm_inputs"):
+                mm = {}
+                for mtype in group[0].batch["mm_inputs"]:
+                    packs = [r.batch["mm_inputs"][mtype] for r in group]
+                    values = np.concatenate([np.asarray(p["values"]) for p in packs])
+                    # local batch row j stays j; padded slots (>= 1 in a B=1
+                    # request batch) map to n, which the splice drops
+                    batch_idx = np.concatenate([
+                        np.where(np.asarray(p["batch_idx"]) < 1, j, n).astype(np.int32)
+                        for j, p in enumerate(packs)])
+                    token_pos = np.concatenate(
+                        [np.asarray(p["token_pos"]) for p in packs]).astype(np.int32)
+                    mm[mtype] = {
+                        "values": torch.from_numpy(values).to(dev),
+                        "batch_idx": torch.from_numpy(batch_idx).to(dev),
+                        "token_pos": torch.from_numpy(token_pos).to(dev),
+                    }
+            if not self.paged:
+                dest = page_rows = None  # each request's row goes to its slot
+            else:
+                if reserve:
+                    for req, slot in zip(group, slots):
+                        self._reserve_pages(req, slot)
+                dest = self._bucket_page_ids(slots, bucket).astype(np.int64)
+                page_rows = self.page_table[np.asarray(slots)]
 
-        def t(a, dtype):
-            return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+            def t(a, dtype):
+                return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
-        with torch.inference_mode():
-            lengths, first, last_logits = self._prefill(
-                bucket, t(input_ids, torch.long), t(mask, torch.int32), mm,
-                t(dest, torch.long), t(slots, torch.long), t(page_rows, torch.int32),
-                t([r.temperature for r in group], torch.float32),
-                t([r.top_p for r in group], torch.float32),
-                t([r.max_new_tokens for r in group], torch.int32), self._next_seed())
-            lengths, first = lengths.cpu().numpy(), first.cpu().numpy()
-        self._last_prefill_logits = last_logits
-        self.n_prefill_calls += 1
+            with torch.inference_mode():
+                lengths, first, last_logits = self._prefill(
+                    bucket, t(input_ids, torch.long), t(mask, torch.int32), mm,
+                    t(dest, torch.long), t(slots, torch.long), t(page_rows, torch.int32),
+                    t([r.temperature for r in group], torch.float32),
+                    t([r.top_p for r in group], torch.float32),
+                    t([r.max_new_tokens for r in group], torch.int32), self._next_seed())
+                lengths, first = lengths.cpu().numpy(), first.cpu().numpy()
+            self._last_prefill_logits = last_logits
+            self.n_prefill_calls += 1
 
         now = time.time()
         for j, (req, slot) in enumerate(zip(group, slots)):
@@ -946,53 +984,65 @@ class ServingEngine:
     def step(self) -> bool:
         """Admit + one decode chunk for all active slots.
         Returns True if any work remains."""
-        self._admit()
-        # a slot only ends early when there is no cache room for one more token
-        for slot in range(self.cfg.max_slots):
-            if self.active[slot] and self.lengths[slot] >= self.cfg.max_seq_len:
-                self._finish(slot, reason="capacity")
-        if not self.active.any():
-            return bool(self.queue)
-        if self.spec_k:
-            return self._spec_step()
+        with tracer.span("engine.step"):
+            with tracer.span("engine.admit"):
+                self._admit()
+            # a slot only ends early when there is no cache room for one more token
+            for slot in range(self.cfg.max_slots):
+                if self.active[slot] and self.lengths[slot] >= self.cfg.max_seq_len:
+                    self._finish(slot, reason="capacity")
+            if not self.active.any():
+                return bool(self.queue)
+            if self.spec_k:
+                return self._spec_step()
 
-        # shrink the final chunk to the tightest active slot's headroom, to a
-        # power of two as the JAX engine does, so both admit at the same steps
-        headroom = min(self.cfg.max_seq_len - int(self.lengths[s])
-                       for s in range(self.cfg.max_slots) if self.active[s])
-        chunk_now = min(self.decode_chunk, max(1, headroom))
-        if self.cfg.prefill_group_cap and self.queue:
-            # staggered admission: a 1-step chunk between groups keeps the
-            # admitted streams alive without delaying the next group's prefill
-            chunk_now = 1
-        chunk_now = 1 << (chunk_now.bit_length() - 1)
+            # shrink the final chunk to the tightest active slot's headroom, to a
+            # power of two as the JAX engine does, so both admit at the same steps
+            headroom = min(self.cfg.max_seq_len - int(self.lengths[s])
+                           for s in range(self.cfg.max_slots) if self.active[s])
+            chunk_now = min(self.decode_chunk, max(1, headroom))
+            if self.cfg.prefill_group_cap and self.queue:
+                # staggered admission: a 1-step chunk between groups keeps the
+                # admitted streams alive without delaying the next group's prefill
+                chunk_now = 1
+            chunk_now = 1 << (chunk_now.bit_length() - 1)
 
-        active_at_start = self.active.copy()
-        with torch.inference_mode():
-            toks = self._decode_chunk(chunk_now).cpu().numpy()  # (chunk, slots)
+            active_at_start = self.active.copy()
+            with tracer.span("decode.chunk"), torch.inference_mode():
+                toks = self._decode_chunk(chunk_now)
+                with tracer.span("decode.wait"):
+                    toks = toks.cpu().numpy()  # (chunk, slots)
 
-        # Advance the host mirrors from the tokens alone, replicating the
-        # device's deactivation rules.
-        for slot in range(self.cfg.max_slots):
-            if not active_at_start[slot]:
-                continue
-            req = self.slot_request[slot]
-            for s in range(chunk_now):
-                tok = int(toks[s, slot])
-                req.tokens.append(tok)
-                self.slot_generated[slot] += 1
-                self.lengths[slot] += 1
-                if tok == self.eos_id:
-                    self._finish(slot, reason="eos")
-                    break
-                if self.slot_generated[slot] >= self.slot_budget[slot]:
-                    self._finish(slot, reason="budget")
-                    break
-                if self.lengths[slot] >= self.cfg.max_seq_len:
-                    # the finish (page release) happens at the top of the
-                    # next step, after this chunk's fold used the pages
-                    break
-        return bool(self.queue) or bool(self.active.any())
+            # Advance the host mirrors from the tokens alone, replicating the
+            # device's deactivation rules.
+            with tracer.span("engine.replay") as sp:
+                if sp:
+                    live = np.flatnonzero(active_at_start)
+                    rids = [self.slot_request[s].request_id for s in live]
+                    generated = self.slot_generated[live].copy()
+                for slot in range(self.cfg.max_slots):
+                    if not active_at_start[slot]:
+                        continue
+                    req = self.slot_request[slot]
+                    for s in range(chunk_now):
+                        tok = int(toks[s, slot])
+                        req.tokens.append(tok)
+                        self.slot_generated[slot] += 1
+                        self.lengths[slot] += 1
+                        if tok == self.eos_id:
+                            self._finish(slot, reason="eos")
+                            break
+                        if self.slot_generated[slot] >= self.slot_budget[slot]:
+                            self._finish(slot, reason="budget")
+                            break
+                        if self.lengths[slot] >= self.cfg.max_seq_len:
+                            # the finish (page release) happens at the top of the
+                            # next step, after this chunk's fold used the pages
+                            break
+                if sp:
+                    sp.set(emitted=dict(zip(rids, (self.slot_generated[live]
+                                                   - generated).tolist())))
+            return bool(self.queue) or bool(self.active.any())
 
     def _spec_step(self) -> bool:
         """A chunk of verify steps + the host-mirror replay. EOS, budget and

@@ -40,8 +40,8 @@ from typing import Any, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from multimeditron_torch.models.multimodal import MultimodalModel, TrainingMode
-from multimeditron_torch.profiling import ProfileWindow, ThroughputMeter, profiler_enabled
+from multimeditron_torch.models.multimodal import MultimodalModel, TrainingMode, mm_item_count
+from multimeditron_torch.profiling import ProfileWindow, ThroughputMeter, profiler_enabled, tracer
 
 logger = logging.getLogger(__name__)
 
@@ -260,26 +260,30 @@ class MultimodalTrainer:
         """One microbatch step. With grad_accum > 1 the optimizer applies
         once every grad_accum calls (optax.MultiSteps)."""
         self._maybe_quantize_frozen_towers(batch)
-        batch = _to_device(batch, self.device)
-        _, loss = self.model.forward(batch, remat=self.cfg.remat)
+        with tracer.span("train.feed"):
+            batch = _to_device(batch, self.device)
+        with tracer.span("train.forward"):
+            _, loss = self.model.forward(batch, remat=self.cfg.remat)
         params = [p for _, p in self._trainable]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        grad_norm = _global_norm(grads)
-        k, st = self.cfg.grad_accum, self.opt_state
-        if k > 1:
-            with torch.no_grad():
-                n = st["mini_step"]
-                for (name, _), g in zip(self._trainable, grads):
-                    acc = st["acc_grads"][name]
-                    acc.add_((g - acc) / (n + 1))  # Welford mean, as optax
-                if n == k - 1:
-                    self._apply(list(st["acc_grads"].values()))
-                    for acc in st["acc_grads"].values():
-                        acc.zero_()
-                st["mini_step"] = (n + 1) % k
-        else:
-            self._apply(grads)
+        with tracer.span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with tracer.span("train.optimizer"):
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            grad_norm = _global_norm(grads)
+            k, st = self.cfg.grad_accum, self.opt_state
+            if k > 1:
+                with torch.no_grad():
+                    n = st["mini_step"]
+                    for (name, _), g in zip(self._trainable, grads):
+                        acc = st["acc_grads"][name]
+                        acc.add_((g - acc) / (n + 1))  # Welford mean, as optax
+                    if n == k - 1:
+                        self._apply(list(st["acc_grads"].values()))
+                        for acc in st["acc_grads"].values():
+                            acc.zero_()
+                    st["mini_step"] = (n + 1) % k
+            else:
+                self._apply(grads)
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
@@ -335,14 +339,22 @@ class MultimodalTrainer:
                 break
             if window is not None and self.step == cfg.profile_start_step:
                 window.start()
-            tokens = int(np.prod(np.asarray(batch["input_ids"]).shape))  # padded positions
-            metrics = {k: float(v) for k, v in self.train_step(batch).items()}
-            dt = time.time() - t_prev
-            t_prev = time.time()
-            metrics["lr"] = self.lr(self.step)
-            metrics.update(meter.update(tokens))
-            metrics["step_time_s"] = dt
-            logger.log(self.step, metrics)
+            padded = int(np.prod(np.asarray(batch["input_ids"]).shape))
+            mask = batch.get("attention_mask")
+            tokens = padded if mask is None else int(np.asarray(mask).sum())
+            with tracer.span("train.step", step=self.step, tokens=tokens, padded=padded) as sp:
+                if sp:
+                    sp.set(images=mm_item_count(batch.get("mm_inputs"),
+                                                np.asarray(batch["input_ids"]).shape[0]))
+                out = self.train_step(batch)
+                with tracer.span("train.wait"):
+                    metrics = {k: float(v) for k, v in out.items()}
+                dt = time.time() - t_prev
+                t_prev = time.time()
+                metrics["lr"] = self.lr(self.step)
+                metrics.update(meter.update(tokens))
+                metrics["step_time_s"] = dt
+                logger.log(self.step, metrics)
             last = metrics
             if window is not None and self.step == cfg.profile_start_step + cfg.profile_num_steps:
                 window.stop()
