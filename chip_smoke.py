@@ -48,7 +48,10 @@ Phases, each of which raises on failure (non-zero exit):
 5. serving at full width: seeded random weights at Llama-3.1-8B widths plus
    the CLIP ViT-L/14 tower in bfloat16, 8 requests of 512 prompt tokens with
    one 224x224 uint8 image each and 64 new tokens, through submit() and
-   run(); counts each kernel's launches in that run;
+   run(), timed; then one more such round under torch.profiler that counts
+   each kernel's launches (each decode step is a replay of the graph the
+   warm-up round captured, so K4 and K9 are counted from the round's device
+   records, the others on the host);
 6. training end to end in float32: 3 optimizer steps of MultimodalTrainer in
    ALIGNMENT and in FULL (remat, grad_accum=2) on the card against the CPU
    (losses and updated parameters must agree); and ALIGNMENT with
@@ -120,6 +123,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1424,6 +1428,26 @@ def check_w8a16_launches(counts: dict, steps: int, prefill_calls: int) -> None:
         raise AssertionError(f"W8A8 products ran without w8a8_prefill: {counts}")
 
 
+# device records of the kernels a CUDA graph's replays launch: K4 (the ring
+# form of decode_kernel) and K9
+GRAPH_KERNELS = {"ring_decode_attention": r"\bdecode_kernel<[^<>]*, true>",
+                 "wo_matmul": r"\bwo_(wgmma|f32)_kernel\b"}
+
+
+def device_records(fn, patterns: dict) -> dict:
+    """One call of ``fn`` under torch.profiler: the number of device records
+    of the kernels whose name matches each pattern, a graph's replays
+    included (the wrappers count the launches made on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(1 for n in names if re.search(rx, n)) for k, rx in patterns.items()}
+
+
 def check_requests(reqs, vocab: int, budget: int = 64) -> None:
     """Every request finished with 1..budget tokens inside the vocab."""
     for r in reqs:
@@ -1479,23 +1503,38 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
         engine.submit(b, max_new_tokens=4)
     engine.run()
 
+    # the timed round
     batches = requests()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    engine.n_prefill_calls = engine.n_decode_steps = engine.n_decode_chunks = 0
+    steps = engine.n_decode_steps
     t0 = time.time()
     reqs = [engine.submit(b, max_new_tokens=64) for b in batches]
     engine.run()
     wall = time.time() - t0
+    check_requests(reqs, vocab)
+    timed = dict(**latency(reqs), wall_s=wall, timed_decode_steps=engine.n_decode_steps - steps)
+
+    # the counted round, under torch.profiler: every decode step replays the
+    # graph the warm-up round captured, so its K4 and K9 launches are device
+    # records, which the wrappers' host counts miss
+    reset_launch_counts()
+    engine.n_prefill_calls = engine.n_decode_steps = engine.n_decode_chunks = 0
+    engine.n_decode_graph_steps = 0
+    reqs = [engine.submit(b, max_new_tokens=64) for b in requests()]
+    records = device_records(engine.run, GRAPH_KERNELS)
     counts = launch_counts(TOWER_KERNELS + DECODE)
     if int8_llm:
         counts.update(wo_matmul=wo.launches["wo_matmul"], w8a8_matmul=wo.launches["w8a8_matmul"])
+    counts.update({k: v for k, v in records.items() if k in counts})
     work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=engine.n_decode_steps,
+                decode_graph_steps=engine.n_decode_graph_steps,
                 decode_chunks=engine.n_decode_chunks)
-    log(f"  launches: {counts}; work: {work}")
+    log(f"  launches (K4, K9: device records): {counts}; work: {work}")
 
     check_requests(reqs, vocab)
     check_tower_launches(tower, counts, work["prefill_calls"])
+    if work["decode_graph_steps"] != work["decode_steps"]:
+        raise AssertionError(f"a decode step ran outside the graph: {work}")
     if counts["ring_decode_attention"] < 32 * work["decode_steps"]:
         raise AssertionError("K4 launched fewer than 32 times per decode step")
     if counts["fold_ring_into_pages"] < work["decode_chunks"]:
@@ -1561,14 +1600,13 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
     log(f"  one 8-request prefill: {prefill}")
 
     out = dict(
-        **latency(reqs),
+        **timed,
         prefill_profile=prefill,
-        wall_s=wall,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=counts, **work, **({"fidelity": fidelity} if fidelity else {}))
     log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, p95 {out['ttft_p95_ms']:.1f} ms, decode "
-        f"{out['decode_tok_per_s']:.1f} tok/s over {work['decode_steps']} steps, peak memory "
-        f"{out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
+        f"{out['decode_tok_per_s']:.1f} tok/s over {out['timed_decode_steps']} steps, peak "
+        f"memory {out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
     return out
 
 

@@ -243,12 +243,17 @@ def check(name: str, code: int) -> None:
 # split-K sum, K4 / K8's split merge): int32 counters that the kernels leave
 # zero, and float32 workspace, one buffer of each per (device, stream), grown
 # on demand. Launches on one stream run in order, so the kernels share them.
+# A launch captured into a CUDA graph gets buffers of its own instead: they
+# are allocated in the graph's pool and live as long as the graph, and no
+# eager launch, on any stream, shares them while it replays.
 _counters: dict = {}
 _workspace: dict = {}
 
 
 def zeroed_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 zeros on ``device`` for ``stream``'s launches."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
     buf = _counters.get((device.index, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
@@ -258,6 +263,8 @@ def zeroed_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` float32 values of scratch on ``device`` for ``stream``."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(n, dtype=torch.float32, device=device)
     buf = _workspace.get((device.index, stream))
     if buf is None or buf.numel() < n:
         buf = torch.empty(n, dtype=torch.float32, device=device)

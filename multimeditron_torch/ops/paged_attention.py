@@ -31,7 +31,9 @@ import torch
 
 from multimeditron_torch import _build
 
-# Launches of the CUDA kernels (the plain twins do not count).
+# Launches of the CUDA kernels (the plain twins do not count), counted by the
+# calls made on the host: a captured CUDA graph counts its kernels once, at
+# capture, and its replays not at all.
 launches = {"paged_attention": 0, "ring_decode_attention": 0,
             "ring_verify_attention": 0, "fold_ring_into_pages": 0}
 

@@ -30,7 +30,8 @@ from multimeditron_torch import _build
 from multimeditron_torch.models.vit_quant import int8_matmul
 
 # Launches of K9, and calls of the W8A8 product (not a kernel of its own:
-# counted so that a run shows where W8A8 fired).
+# counted so that a run shows where W8A8 fired), made on the host: a CUDA
+# graph's replays count none.
 launches = {"wo_matmul": 0, "w8a8_matmul": 0}
 
 K_CHUNK = 64      # K values per pipeline stage of the kernel (K must be a multiple)

@@ -51,13 +51,20 @@ Scheduling state lives on the engine's device (the model's device); the host
 keeps mirrors for admission, page allocation and finish bookkeeping, and
 downloads one token matrix per chunk. Each live decode or verify step costs
 one host sync (``active.any()``), where the JAX loop skips dead steps
-in-graph.
+in-graph. A plain decode step is one function over the state
+(``_decode_step``: embedding, decoder, lm_head, sampling, state update, in
+place). On the card with paged KV and no speculation it is captured once,
+at the first live step, as a CUDA graph and replayed for every live step
+(``n_decode_graph_steps`` counts the replays); elsewhere it runs eagerly.
 
 Each phase of a plain step (admission, each prefill call and its parts,
 forks, the decode chunk, each decode step and its parts, the fold, the
 readback and the host-mirror replay) records a span in
-``profiling.tracer``, with counters from the host mirrors; the speculative
-path records only ``engine.step``. The tracer is off unless enabled.
+``profiling.tracer``, with counters from the host mirrors; a replayed step
+records ``decode.forward`` around the replay (sampling included) and no
+``decode.sample``, and its ``decode.step`` carries ``graph``. The
+speculative path records only ``engine.step``. The tracer is off unless
+enabled.
 
 Not ported yet (``NotImplementedError``): tensor parallelism or an
 external mesh, and ``attn_impl``.
@@ -239,10 +246,18 @@ class ServingEngine:
         # verify steps, slot-steps and emitted tokens
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
+        self.n_decode_graph_steps = 0  # of n_decode_steps, those run as a graph replay
         self.n_decode_chunks = 0
         self.spec_verify_steps = 0
         self.spec_slot_steps = 0
         self.spec_emitted = 0
+        # the decode step's CUDA graph, captured at the first live step, and
+        # its key on the device. The graph serves the card's paged plain
+        # decode; elsewhere the key is None and every step runs eagerly
+        self._decode_graph = None
+        self._graph_key = None
+        if self.device.type == "cuda" and self.paged and not self.spec_k:
+            self._graph_key = torch.zeros((2,), dtype=torch.int64, device=dev)
 
     # ------------------------------------------------------------------
     # Page allocator
@@ -611,54 +626,103 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
+    def _decode_step(self, key: Optional[torch.Tensor]) -> None:
+        """One single-token step over the slot pool, in place: reads the
+        state's ``tokens``, ``active``, ``remaining`` and ``length``, the
+        cache and the step's ``key`` (a host key, or the graph's key on the
+        device; None when the engine does not sample), and writes the next
+        ``tokens``, ``active``, ``remaining`` and ``length``. It launches
+        work and nothing else (no sync, no host tensor), so the eager loop
+        runs it and a CUDA graph captures it. EOS, budget and capacity
+        deactivate slots; an inactive slot keeps its length and emits EOS."""
+        st, eos, llm = self.state, self.eos_id, self.llm
+        tokens, active, length = st["tokens"], st["active"], st["length"]
+        with tracer.span("decode.forward"):
+            logits, new_cache = llm(inputs_embeds=llm.embed(tokens)[:, None, :],
+                                    kv_cache={k: st[k] for k in self.cache_keys})
+        with tracer.span("decode.sample"):
+            nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"], key)
+            nxt = torch.where(active, nxt, eos)
+        # only active slots advance their cache length; the token just
+        # produced consumed one unit of budget
+        new_length = torch.where(active, new_cache["length"], length)
+        remaining = st["remaining"] - active.to(torch.int32)
+        st["active"].copy_(active & (nxt != eos) & (remaining > 0)
+                           & (new_length < self.cfg.max_seq_len))
+        st["remaining"].copy_(remaining)
+        length.copy_(new_length)
+        tokens.copy_(nxt)
+
+    def _capture_decode_step(self) -> None:
+        """Capture :meth:`_decode_step` as a CUDA graph over the state's
+        tensors and the static key, after one eager warm-up step on the
+        capture stream whose state writes are undone (the ring row it
+        writes, the step writes again before any read). The graph reads
+        the decoder's parameters and the state's tensors by address:
+        weights updated in place are seen, a tensor replaced is not."""
+        st, dev = self.state, self.device
+        names = ("tokens", "active", "remaining", "length")
+        saved = [st[n].clone() for n in names]
+        key = self._graph_key if self.cfg.do_sample else None
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._decode_step(key)
+            for n, t in zip(names, saved):
+                st[n].copy_(t)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            self._decode_step(key)
+        self._decode_graph = graph
+
     def _decode_chunk(self, chunk: int) -> torch.Tensor:
         """``chunk`` single-token steps over the slot pool, then (paged) the
-        ring fold. EOS, budget and capacity deactivate slots on the device.
-        Returns the (chunk, slots) token matrix."""
-        st, eos, max_len = self.state, self.eos_id, self.cfg.max_seq_len
-        llm = self.llm
-        cache = {k: st[k] for k in self.cache_keys}
-        tokens, active, remaining = st["tokens"], st["active"], st["remaining"]
+        ring fold. A live step runs :meth:`_decode_step`: on the card, with
+        paged KV and no speculation, as the replay of one CUDA graph (the
+        ring row is found on the device, so one graph serves every step and
+        chunk size), else eagerly. Returns the (chunk, slots) token matrix."""
+        st, dev = self.state, self.device
         # the JAX chunk splits its key once per step, dead steps included
-        key = prng.prng_key(st["seed"])
-        rows = []
-        for _ in range(chunk):
-            key, sub = prng.split(key) if self.cfg.do_sample else (key, None)
+        key, subs = prng.prng_key(st["seed"]), []
+        for _ in range(chunk if self.cfg.do_sample else 0):
+            key, sub = prng.split(key)
+            subs.append(sub)
+        graph = self._graph_key is not None
+        if graph and subs:
+            # the chunk's keys reach the card in one pinned copy
+            subs = torch.stack(subs).pin_memory().to(dev, non_blocking=True)
+        toks = torch.empty((chunk, self.cfg.max_slots), dtype=torch.int32, device=dev)
+        for i in range(chunk):
+            sub = subs[i] if len(subs) else None
             with tracer.span("decode.step") as sp:
                 with tracer.span("decode.wait"):
-                    ran = bool(active.any())
+                    ran = bool(st["active"].any())
                 sp.set(ran=ran)
-                if not ran:  # every slot is done: skip the step
-                    rows.append(tokens)
-                    continue
-                self.n_decode_steps += 1
-                with tracer.span("decode.forward"):
-                    logits, new_cache = llm(inputs_embeds=llm.embed(tokens)[:, None, :],
-                                            kv_cache=cache)
-                with tracer.span("decode.sample"):
-                    nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"], sub)
-                    nxt = torch.where(active, nxt, eos)
-                # only active slots advance their cache length
-                cache["length"] = torch.where(active, new_cache["length"], cache["length"])
-                # the token just produced consumed one unit of budget
-                remaining = remaining - active.to(torch.int32)
-                active = active & (nxt != eos) & (remaining > 0) & (cache["length"] < max_len)
-                tokens = nxt
-                rows.append(tokens)
+                if ran:
+                    self.n_decode_steps += 1
+                    if not graph:
+                        self._decode_step(sub)
+                    else:
+                        sp.set(graph=True)
+                        if self._decode_graph is None:
+                            self._capture_decode_step()
+                        with tracer.span("decode.forward"):
+                            if sub is not None:
+                                self._graph_key.copy_(sub)
+                            self._decode_graph.replay()
+                        self.n_decode_graph_steps += 1
+                # a skipped step (every slot done) repeats the last token row
+                toks[i].copy_(st["tokens"])
         with tracer.span("decode.fold"):
             if self.paged:
                 # absorb the chunk's ring rows into the page pool; rows past a
                 # slot's final length are not written
                 fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
                                      st["page_table"], st["pages_length"], chunk,
-                                     cache["length"])
-                st["pages_length"].copy_(cache["length"])
+                                     st["length"])
+                st["pages_length"].copy_(st["length"])
             self.n_decode_chunks += 1
-            toks = torch.stack(rows)  # before st["tokens"], which rows may hold, changes
-            st["length"].copy_(cache["length"])
-            st["tokens"].copy_(tokens)
-            st["active"].copy_(active)
-            st["remaining"].copy_(remaining)
         st["seed"] = _wrap_int32(st["seed"] + 1)
         return toks
 

@@ -12,13 +12,16 @@ A key is a ``(..., 2)`` int64 tensor of two uint32 words. Every value is a
 uint32 held in an int64 tensor and masked to 32 bits after each addition;
 the hash also takes plain Python ints for the key words, so a key known on
 the host never travels to the device. Random bits are made on the device of
-the tensor they serve.
+the tensor they serve; the words of a key on that device are read there, so
+a CUDA graph that captures a draw reads whatever key its static key tensor
+holds at each replay. No draw builds a tensor from a host scalar.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -126,12 +129,14 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """float32 ``jax.random.uniform``: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled to [minval, maxval)."""
+    exponent of 1.0, minus 1, scaled to [minval, maxval). The bounds and
+    their difference are rounded to float32 on the host, as JAX computes
+    them, and enter the launches as scalars."""
     bits = random_bits(key, shape, device)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp(floats * float(span) + float(lo), min=float(lo))
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int],

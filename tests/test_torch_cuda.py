@@ -1124,3 +1124,127 @@ def test_slab_engine_card_matches_cpu(gen, spec_k):
     k1 = fl.launches["flash_attention_fwd"] - before[0]["flash_attention_fwd"]
     assert k1 == (0 if spec_k else 2 * eng.n_decode_steps)
     assert all(paged.launches[n] == before[1][n] for n in names)
+
+
+def _graph_pair(vocab: int, quantize: bool = False, **kw):
+    """A tiny float32 model on the card and two paged engines over it at the
+    same settings: the first replays the decode step's CUDA graph, the
+    second runs the eager loop."""
+    from multimeditron_torch.models.llama import LlamaConfig
+    from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
+    from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
+
+    cfg = MultimodalConfig(llm=LlamaConfig(vocab_size=vocab, hidden_size=256,
+                                           intermediate_size=512, num_layers=2, num_heads=4,
+                                           num_kv_heads=2, dtype=torch.float32),
+                           eos_token_idx=10)  # head dim 64
+    cpu = MultimodalModel(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = MultimodalModel(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    ecfg = EngineConfig(**{**dict(max_slots=3, max_seq_len=47, prefill_buckets=(16, 32),
+                                  page_size=16, decode_chunk=4, max_new_tokens=40,
+                                  quantize_llm=quantize), **kw})
+    graph, eager = ServingEngine(card, ecfg), ServingEngine(card, ecfg)
+    eager._graph_key = None  # the eager loop, as off the card
+    return graph, eager
+
+
+def _graph_prompts(vocab: int):
+    rng = np.random.default_rng(5)
+    out = []
+    # the two prompts that reach the cache's end leave 27 and 18 tokens of
+    # headroom: chunks of 4, then 2 and 1
+    for n in (12, 20, 7, 29, 9):
+        ids = rng.integers(2, vocab, (1, n)).astype(np.int32)
+        out.append({"input_ids": ids, "attention_mask": np.ones_like(ids)})
+    return out
+
+
+def _serve_pair(eng, prompts, group: bool):
+    """Budgets that end mid-chunk, two past the cache (capacity), one greedy
+    request in a sampling engine (at vocab 64 it emits EOS, 10, as its
+    third token); with ``group`` a forked group of 3."""
+    budgets = (5, 40, 9, 40, 13)
+    reqs = []
+    if group:
+        reqs += eng.submit_group(prompts[1], 3, max_new_tokens=11)
+    for j, (b, n) in enumerate(zip(prompts, budgets)):
+        reqs.append(eng.submit(b, max_new_tokens=n, temperature=0.0 if j == 2 else None))
+    eng.run()
+    return reqs
+
+
+@pytest.mark.parametrize("case", ["greedy", "sampled", "forked", "w8a16"])
+def test_decode_graph_matches_eager_loop(gen, case):
+    """The replayed decode step against the eager loop on the card, at one
+    seed: equal tokens and finish reasons, equal final lengths, budgets and
+    activity, and an equal page pool after the last fold; every live step
+    of the graph engine ran as a replay, over chunks of 4, 2 and 1."""
+    vocab = 64
+    kw = dict(do_sample=case != "greedy", temperature=1.0, seed=2 ** 31 - 7)
+    graph, eager = _graph_pair(vocab, quantize=case == "w8a16", **kw)
+    chunks = []
+    run_chunk = graph._decode_chunk
+    graph._decode_chunk = lambda n: chunks.append(n) or run_chunk(n)
+    prompts = _graph_prompts(vocab)
+    got = _serve_pair(graph, prompts, group=case == "forked")
+    want = _serve_pair(eager, prompts, group=case == "forked")
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert [r.finish_reason for r in got] == [r.finish_reason for r in want]
+    assert {"eos", "budget", "capacity"} <= {r.finish_reason for r in got}
+    for name in ("length", "pages_length", "active", "remaining", "tokens", "k", "v"):
+        assert torch.equal(graph.state[name], eager.state[name]), name
+    assert graph.n_decode_graph_steps == graph.n_decode_steps > 0
+    assert eager.n_decode_graph_steps == 0 and eager.n_decode_steps == graph.n_decode_steps
+    assert {1, 2, 4} <= set(chunks)
+
+
+def test_decode_graph_replay_shows_k4_in_the_profiler(gen):
+    """A torch.profiler trace of replays holds K4's device records, one a
+    layer of each step; the wrapper's host launch counter stays put, as the
+    kernels are launched by the graph."""
+    graph, _ = _graph_pair(300, do_sample=True, temperature=0.7)
+    prompts = _graph_prompts(300)
+    graph.generate(prompts[:2], max_new_tokens=6)  # captures the graph
+    before = (paged.launches["ring_decode_attention"], graph.n_decode_steps)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.generate(prompts[2:], max_new_tokens=10)
+        torch.cuda.synchronize()
+    steps = graph.n_decode_steps - before[1]
+    k4 = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and "decode_kernel<" in e.name]
+    assert steps > 0 and len(k4) == 2 * steps
+    assert paged.launches["ring_decode_attention"] == before[0]
+
+
+def test_captured_launches_get_scratch_of_their_own(gen):
+    """While a CUDA graph is captured, K4's and K9's scratch is allocated for
+    the graph (zeroed counters at every replay) and is neither taken from
+    nor stored in the per-stream tables that eager launches share."""
+    from multimeditron_torch import _build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.Stream(dev)
+    handle = stream.cuda_stream
+    eager = (_build.workspace(dev, handle, 64), _build.zeroed_counters(dev, handle, 8))
+
+    def tables():
+        return [{k: v.data_ptr() for k, v in t.items()}
+                for t in (_build._workspace, _build._counters)]
+
+    before = tables()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        work = _build.workspace(dev, handle, 64)
+        counters = _build.zeroed_counters(dev, handle, 8)
+        counters += 1
+    assert tables() == before
+    assert work.data_ptr() != eager[0].data_ptr()
+    assert counters.data_ptr() != eager[1].data_ptr()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(counters, torch.ones(8, dtype=torch.int32, device=dev))
+    assert not eager[1].any()

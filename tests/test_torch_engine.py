@@ -163,3 +163,21 @@ def test_engine_state_lives_on_the_model_device(pair):
     assert eng.state["seed"] == 0  # the plain decode chunk's seed, a host int
     assert eng.state["ring_k"].shape[3] == 16  # ring rounded up to 16 rows
     assert eng.state["history"].shape == (2, 128 + 3 + 2)
+
+
+@pytest.mark.parametrize("option", [dict(), dict(kv_mode="slab"), dict(speculative_k=2),
+                                    dict(do_sample=True, seed=4)])
+def test_decode_runs_the_step_body_eagerly_off_the_card(pair, option, monkeypatch):
+    """Off the card, in slab mode and with speculation no step is a graph
+    replay: each live plain decode step runs the one step body that the
+    card's graph captures, and a speculative engine runs its verify step."""
+    calls = []
+    body = te.ServingEngine._decode_step
+    monkeypatch.setattr(te.ServingEngine, "_decode_step",
+                        lambda self, key: calls.append(key) or body(self, key))
+    eng = _engine(pair[0], **option)
+    eng.generate(pair[1])
+    assert eng.n_decode_graph_steps == 0 and eng._decode_graph is None
+    assert len(calls) == eng.n_decode_steps
+    assert (eng.n_decode_steps > 0) == ("speculative_k" not in option)
+    assert all((k is None) != eng.cfg.do_sample for k in calls)

@@ -90,3 +90,52 @@ def test_rejects_bad_keys_and_seeds():
         prng.split(torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError, match="one key per row"):
         prng.random_bits(torch.zeros((4, 2), dtype=torch.int64), (3, 10))
+
+
+def _device_words(monkeypatch):
+    """Make every draw read the key's words from the key tensor, as a draw
+    on the card does from a key held there (a CUDA graph's static key)."""
+    monkeypatch.setattr(prng, "_words", lambda key: (key[..., :1], key[..., 1:]))
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 31 - 1, -5])
+def test_key_on_the_device_draws_as_the_host_key_and_jax(monkeypatch, seed):
+    """A key whose words are read from the key tensor (what a CUDA graph
+    replays) gives the bits, uniforms and categorical draws of the same key
+    hashed with Python ints, and JAX's (uniforms on [0, 1) and gumbel's
+    [tiny, 1), the engine's: XLA on the CPU fuses other bounds' scale and
+    shift into one rounding)."""
+    logits = np.random.default_rng(seed % 97).normal(size=(4, 3000)).astype(np.float32) * 3
+    key = prng.prng_key(seed)
+    assert isinstance(prng._words(key)[0], int)
+
+    def draws():
+        return (prng.random_bits(key, (3, 700)), prng.uniform(key, (3, 700)),
+                prng.uniform(key, (3, 700), -2.5, 7.0), prng.gumbel(key, (3, 700)),
+                prng.categorical(key, torch.from_numpy(logits)))
+
+    on_host = draws()
+    _device_words(monkeypatch)
+    on_device = draws()
+    for a, b in zip(on_device, on_host):
+        assert torch.equal(a, b)
+    jkey = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(on_device[1].numpy(),
+                                  np.asarray(jax.random.uniform(jkey, (3, 700))))
+    np.testing.assert_array_equal(
+        on_device[4].numpy(),
+        np.asarray(jax.random.categorical(jkey, jnp.asarray(logits), axis=-1)))
+
+
+def test_draws_build_no_tensor_from_a_host_scalar(monkeypatch):
+    """uniform, gumbel and categorical make no tensor from a Python scalar:
+    on the card that is a pageable upload, which a CUDA graph cannot hold."""
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"torch.tensor{args}")
+
+    key = prng.prng_key(3)
+    want = prng.categorical(key, torch.ones(2, 50))
+    monkeypatch.setattr(torch, "tensor", refuse)
+    prng.uniform(key, (5,), 0.25, 0.5)
+    prng.gumbel(key, (2, 9))
+    assert torch.equal(prng.categorical(key, torch.ones(2, 50)), want)
