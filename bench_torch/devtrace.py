@@ -6,7 +6,8 @@ its drain are over (the reduction takes seconds of host time). Read from it: the
 activity (busy seconds; the idle share is the rest of the stretch), device
 time by kernel name (the kernel rooflines), the ten device operations that
 took most time and the ten host operations the longest idle gaps waited on
-(the ``breakdown`` of the result line).
+(the ``breakdown`` of the result line), and the timeline that ``progtrace.py``
+lays the program's spans over.
 """
 
 from __future__ import annotations
@@ -36,9 +37,14 @@ def _sync() -> None:
 
 
 def prime(device) -> None:
-    """Load the profiler's device tracing in set-up, not in the window."""
+    """Load the profiler's device tracing in set-up, not in the window, and
+    turn the program's tracer on: a traced run's set-up (untraced runs,
+    which give the end-to-end metrics, never turn it on)."""
+    import progtrace
+
     with _profile():
         torch.ones(8, device=device).sum().item()
+    progtrace.enable_tracer()
 
 
 def short_name(name: str) -> str:
@@ -71,9 +77,14 @@ class Stretch:
         self.prof.__exit__(None, None, None)
 
     def read(self) -> None:
-        """Reduce the trace (seconds of host work): after the window."""
+        """Reduce the trace (seconds of host work): after the window. The
+        device activity on the program's spans' clock is kept as
+        ``summary["timeline"]`` (``progtrace.py``)."""
+        import progtrace
+
         if self.prof is not None and self.t1 is not None and self.summary is None:
             self.summary = summarize(self.prof.events(), self.t1 - self.t0)
+            self.summary["timeline"] = progtrace.timeline(self.prof)
             self.prof = None
 
 

@@ -10,7 +10,6 @@ that decide ``correct``. The per-layer metrics are read from the Run by
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import math
 import sys
@@ -88,19 +87,11 @@ def load_benchmark(root: Path = REPO) -> dict:
 
 def metric_reader(name: str):
     """``metrics/<name>.py``'s ``read``."""
-    path = ROOT / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return spec.load_module(ROOT / "metrics" / f"{name}.py").read
 
 
 def driver(kind: str):
-    path = ROOT / "drivers" / f"{kind}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"bench_driver_{kind}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod
+    return spec.load_module(ROOT / "drivers" / f"{kind}.py")
 
 
 def metrics_for(bench: dict, cell: str, trace: bool) -> List[dict]:
@@ -144,6 +135,15 @@ def emit(out: dict, run: Run) -> None:
               f"{'ok' if c.ok else 'FAILED'}", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(out), flush=True)
+
+
+JAX_NAMES = ("jax", "jaxlib", "flax", "multimeditron_tpu")
+
+
+def jax_modules() -> List[str]:
+    """The loaded modules' top-level names that are JAX or the JAX package,
+    compared whole (``multimeditron_torch`` is the port, not a match)."""
+    return sorted({name.split(".")[0] for name in sys.modules} & set(JAX_NAMES))
 
 
 def nearest_rank(values: List[float], q: float) -> float:

@@ -1,7 +1,8 @@
 """The system under test, built through its public entry points: a
-``MultimodalModel`` from the configuration's published keys
-(``LlamaConfig.from_hf_dict`` and the image modality's config), its weights
-filled from the seed block by block (``weights.py``)."""
+``MultimodalModel`` from the configuration's published keys (the decoder's
+config as its architecture builds it, ``arch/<name>.py``, and the image
+modality's config), its weights filled from the seed block by block
+(``weights.py``)."""
 
 from __future__ import annotations
 
@@ -13,10 +14,9 @@ from spec import Dims
 
 def build_model(cfg: dict, d: Dims, seed: int, device):
     from multimeditron_torch.modalities.image_clip import ImageConfig
-    from multimeditron_torch.models.llama import LlamaConfig
     from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
 
-    llm = LlamaConfig.from_hf_dict(cfg["decoder"])
+    llm = d.program_config(cfg)
     t = cfg["tower"]
     img = ImageConfig(model_type=t["model_type"], hidden_size=llm.hidden_size,
                       clip_name=t["clip_name"], image_size=t["image_size"],
@@ -40,17 +40,8 @@ def fill(model, d: Dims, seed: int) -> None:
     if llm.lm_head is not None:
         llm.lm_head.weight.copy_(weights.head(seed, d, dev))
     llm.final_norm.weight.fill_(1.0)
-    names = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj", "gate": "gate_proj",
-             "up": "up_proj", "down": "down_proj"}
     for i, layer in enumerate(llm.layers):
-        for key, w in weights.decoder_layer(seed, d, i, dev).items():
-            getattr(layer, names[key]).weight.copy_(w)
-        for norm in ("input_norm", "post_attn_norm", "q_norm", "k_norm"):
-            if hasattr(layer, norm):
-                getattr(layer, norm).weight.fill_(1.0)
-        if hasattr(layer, "xielu_alpha_p"):
-            layer.xielu_alpha_p.fill_(weights.XIELU_ALPHA_P)
-            layer.xielu_alpha_n.fill_(weights.XIELU_ALPHA_N)
+        d.fill_layer(layer, weights.decoder_layer(seed, d, i, dev), i)
     image = model.modalities["image"]
     vit = image.embedder
     stem = weights.tower_stem(seed, d, dev)

@@ -18,14 +18,10 @@ phase of their steps. Read here:
 - the readers below, and :func:`queue_wait_ms`, the twin of the accepted
   ``queue_wait_ms.ttft`` from the request ids of ``engine.prefill``.
 
-The parent of a change may have no tracer: every reader then returns None.
-The measured command does not read the spans yet. Two additions to
-``devtrace.py`` would wire them in: ``prime`` calling :func:`enable_tracer`
-(a traced run's set-up), and ``Stretch.read`` keeping
-``summary["timeline"] = timeline(self.prof)`` before it drops the profile;
-the readers in ``metrics/`` named after ``decode_host_ms``,
-``decode_idle_ms``, ``prefill_span_mfu`` and ``loss_device_ms`` then find
-what they read.
+A traced run's set-up turns the tracer on (``devtrace.prime``) and its
+stretch keeps the timeline (``devtrace.Stretch.read``); untraced runs leave
+it off. The parent of a change may have no tracer: every reader then
+returns None.
 """
 
 from __future__ import annotations

@@ -12,6 +12,9 @@ import devtrace
 import roofline
 from harness import Run, nearest_rank
 
+# (keys of each live slot, shared prefixes): roofline.step_keys's arguments
+DecodeStep = Tuple[Tuple[int, ...], Tuple[Tuple[int, int, int], ...]]
+
 K3 = r"encoder_attention_(mma_)?kernel"
 K4 = r"\bdecode_kernel<"
 FLASH = r"flash_fwd_(wgmma_|mma_)?kernel|flash_bwd_(dq|dkv)_(wgmma_)?kernel"
@@ -21,11 +24,12 @@ def _pct(num: float, den: float) -> Optional[float]:
     return None if den <= 0 or num <= 0 else 100.0 * num / den
 
 
-def decode_steps(span: dict, forks_once: bool, page: int) -> List[Tuple[int, int, int]]:
-    """(live slots, keys attended, K/V tokens read) of each decode step of
-    one step() call. A slot holding m tokens at the chunk's start attends
-    over prompt + m + j keys at step j, while it still emits; with
-    ``forks_once`` the full prompt pages a forked group shares are read once."""
+def decode_steps(span: dict, forks_once: bool, page: int) -> List[DecodeStep]:
+    """(keys of each live slot, shared prefixes) of each decode step of one
+    step() call. A slot holding m tokens at the chunk's start attends over
+    prompt + m + j keys at step j, while it still emits; with ``forks_once``
+    the full prompt pages a forked group shares are read once: (slots beyond
+    the first, the pages' tokens, the group's keys) for each group."""
     items = []
     for s, before, after in span["rows"]:
         m0, dec = (1, after - 1) if before == 0 else (before, after - before)
@@ -35,15 +39,14 @@ def decode_steps(span: dict, forks_once: bool, page: int) -> List[Tuple[int, int
         live = [(s, s.prompt.length + m0 + j) for s, m0, dec in items if dec > j]
         if not live:
             continue
-        keys = sum(k for _, k in live)
-        read = keys
+        shared = ()
         if forks_once:
             groups = {}
-            for s, _ in live:
-                groups[s.group] = groups.get(s.group, 0) + 1
-            shared = {s.group: s.prompt.length // page * page for s, _ in live}
-            read -= sum((n - 1) * shared[g] for g, n in groups.items())
-        steps.append((len(live), keys, read))
+            for s, n in live:
+                g = groups.setdefault(s.group, [0, s.prompt.length // page * page, n])
+                g[0] += 1
+            shared = tuple((k - 1, prefix, n) for k, prefix, n in groups.values() if k > 1)
+        steps.append((tuple(n for _, n in live), shared))
     return steps
 
 
@@ -58,8 +61,8 @@ def decode_mfu(run: Run, forks_once: bool) -> Optional[float]:
     for sp in run.host_spans():
         if sp["admitted"] or not sp["decode_steps"]:
             continue
-        for n, keys, read in decode_steps(sp, forks_once, _page(run)):
-            bound += roofline.decode_step_bound_s(d, n, keys, read)
+        for lens, shared in decode_steps(sp, forks_once, _page(run)):
+            bound += roofline.decode_step_bound_s(d, lens, shared)
         wall += sp["t1"] - sp["t0"]
     return _pct(bound, wall)
 
@@ -68,7 +71,7 @@ def decode_batch(run: Run) -> Optional[float]:
     """Decode tokens emitted per decode step: the mean live slots."""
     tokens = steps = 0
     for sp in run.host_spans():
-        tokens += sum(n for n, _, _ in decode_steps(sp, False, _page(run)))
+        tokens += sum(len(lens) for lens, _ in decode_steps(sp, False, _page(run)))
         steps += sp["decode_steps"]
     return tokens / steps if steps else None
 
@@ -149,9 +152,9 @@ def k4_roofline(run: Run, forks_once: bool) -> Optional[float]:
     s = _summary(run)
     if s is None:
         return None
-    bound = sum(run.d.L * roofline.k4_bound_s(run.d, n, keys, read)
+    bound = sum(roofline.k4_step_bound_s(run.d, lens, shared)
                 for sp in run.profiled_spans()
-                for n, keys, read in decode_steps(sp, forks_once, _page(run)))
+                for lens, shared in decode_steps(sp, forks_once, _page(run)))
     _, secs = devtrace.kernel_seconds(s, K4)
     return _pct(bound, secs)
 
@@ -167,8 +170,9 @@ def flash_roofline(run: Run) -> Optional[float]:
         if sp["t1"] is None:
             continue
         lens, _, _ = _batch_counts(sp["batch"])
-        b = roofline.flash_bounds_s(run.d, lens)
-        bound += run.d.L * (2 * b["k1"] + b["k2a"] + b["k2b"])
+        for i, k in run.d.kinds():
+            b = roofline.flash_bounds_s(run.d, lens, i)
+            bound += k * (2 * b["k1"] + b["k2a"] + b["k2b"])
     _, secs = devtrace.kernel_seconds(s, FLASH)
     return _pct(bound, secs)
 

@@ -41,10 +41,10 @@ def logits_at(seed: int, d: Dims, seqs: List[Dict], device, prec: str = "f32",
                 hs[i][a:a + feats.shape[1]] = feats[j]
             del feats
         n_max = max(h.shape[0] for h in hs)
-        cos, sin = ref.rope_tables(d, n_max, device)
+        tables = d.ref_tables(n_max, device)
         for li in range(d.L):
             W = ref.f32(weights.decoder_layer(seed, d, li, device))
-            hs = [ref.decoder_layer(h, W, d, cos, sin, prec) for h in hs]
+            hs = [d.ref_layer(li, h, W, tables, prec) for h in hs]
             del W
         head = weights.head(seed, d, device).float()
         out = []

@@ -84,13 +84,13 @@ def loss_and_grads(seed: int, d: Dims, P: Dict[str, torch.Tensor], batch: dict, 
                 h[start:start + proj.shape[1]] = proj[slot_of[slot]]
     count = sum(int((lab[1:] != -100).sum()) for _, lab, _ in rows)
     n_max = max(h.shape[0] for h in hs)
-    cos, sin = ref.rope_tables(d, n_max, device)
+    tables = d.ref_tables(n_max, device)
     saved = []
     with torch.no_grad():
         for li in range(d.L):
             saved.append(hs)
             W = ref.f32(weights.decoder_layer(seed, d, li, device))
-            hs = [ref.decoder_layer(h, W, d, cos, sin, prec) for h in hs]
+            hs = [d.ref_layer(li, h, W, tables, prec) for h in hs]
     head = weights.head(seed, d, device).float()
     loss, grads = 0.0, []
     for h, (_, lab, _) in zip(hs, rows):
@@ -113,7 +113,7 @@ def loss_and_grads(seed: int, d: Dims, P: Dict[str, torch.Tensor], batch: dict, 
         new = []
         for x0, g in zip(saved[li], grads):
             x = x0.detach().requires_grad_(True)
-            ref.decoder_layer(x, W, d, cos, sin, prec).backward(g)
+            d.ref_layer(li, x, W, tables, prec).backward(g)
             new.append(x.grad)
         grads = new
         saved[li] = None

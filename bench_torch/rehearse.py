@@ -21,11 +21,10 @@ import torch
 import harness
 import spec
 
-TINY_DECODER = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-                    num_key_value_heads=2, head_dim=16, intermediate_size=96, vocab_size=512,
-                    tower_image_size=28, tower_patch_size=14, tower_hidden_size=32,
-                    tower_num_hidden_layers=2, tower_num_attention_heads=2,
-                    tower_intermediate_size=64, eos_token_id=1)
+# the tower's tiny sizes; the decoder's are its architecture's TINY
+TINY_TOWER = dict(tower_image_size=28, tower_patch_size=14, tower_hidden_size=32,
+                  tower_num_hidden_layers=2, tower_num_attention_heads=2,
+                  tower_intermediate_size=64)
 
 TINY_TRAFFIC = {
     "serve_open": {"traffic": {"rate_per_s": 40.0, "ramp_s": 0.2, "drain_s": 20, "image_at": 2,
@@ -67,7 +66,8 @@ def tiny(cell: str, overrides: Optional[dict] = None):
     wl = merge(wl, TINY_TRAFFIC[wl["driver"]])
     if overrides:
         wl = merge(wl, overrides)
-    cfg = spec.shrink(spec.load_config(wl["config"]), **TINY_DECODER)
+    cfg = spec.load_config(wl["config"])
+    cfg = spec.shrink(cfg, **spec.architecture(cfg["arch"]).TINY, **TINY_TOWER)
     return wl, cfg
 
 
@@ -75,6 +75,13 @@ def rehearse(cell: str, seed: int, seconds: float = 1.0, trace: bool = False,
              overrides: Optional[dict] = None, bench: Optional[dict] = None):
     """One tiny run on the CPU: (result line, Run)."""
     wl, cfg = tiny(cell, overrides)
+    return run_tiny(cell, wl, cfg, seed, seconds, trace, bench)
+
+
+def run_tiny(cell: str, wl: dict, cfg: dict, seed: int, seconds: float = 1.0,
+             trace: bool = False, bench: Optional[dict] = None):
+    """A run of ``wl`` on ``cfg`` on the CPU, reported as ``cell``: (result
+    line, Run)."""
     bench = bench or harness.load_benchmark()
     run = harness.Run(workload=wl, cfg=cfg, d=spec.dims(cfg), seed=seed, seconds=seconds,
                       trace=trace, device=torch.device("cpu"), t_process=time.time())

@@ -1,6 +1,9 @@
 """Peaks of the card, and the operations and bytes that each model step and
 each kernel needs.
 
+The decoder's counts are its architecture's (``arch/<name>.py``, see
+``spec.Dims``): per kind of layer, summed over the layers of that kind.
+
 Peaks: NVIDIA's data sheet for the H100 SXM at its 700 W limit, dense:
 989 TFLOP/s in bf16 on the tensor cores and 3.35 TB/s of HBM. A card set
 below 700 W (``nvidia-smi --query-gpu=power.limit``) runs slower; the run
@@ -15,7 +18,7 @@ the model's FLOPs. A multiply-add is 2 operations.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional, Sequence, Tuple
 
 from spec import Dims
 
@@ -36,11 +39,18 @@ def causal_pairs(n: int) -> int:
 
 
 # ----------------------------------------------------------------------
-# Model FLOPs
+# Model FLOPs and bytes: the architecture's per-layer counts (spec.Dims),
+# summed over its kinds of layer
 # ----------------------------------------------------------------------
-def attn_fwd_flops(d: Dims, pairs: int) -> float:
-    """Causal attention's forward in one layer: QK^T and PV over the pairs."""
-    return 4.0 * pairs * d.H * d.Dh
+def attn_fwd_flops(d: Dims, n: int) -> float:
+    """Causal attention's forward over an n-token sequence in every layer:
+    QK^T and PV over each layer's pairs."""
+    return float(sum(k * d.pair_flops(i) * d.pairs(i, n) for i, k in d.kinds()))
+
+
+def attended(d: Dims, i: int, n: int) -> int:
+    """Keys the last token of an n-token sequence attends in layer i."""
+    return d.pairs(i, n) - d.pairs(i, n - 1)
 
 
 def tower_flops(d: Dims) -> float:
@@ -65,32 +75,49 @@ def prefill_flops(d: Dims, prompt_len: int, images: int) -> float:
     last position only."""
     return (images * (tower_flops(d) + projector_flops(d))
             + 2.0 * d.body_params * prompt_len
-            + d.L * attn_fwd_flops(d, causal_pairs(prompt_len))
+            + attn_fwd_flops(d, prompt_len)
             + 2.0 * d.V * d.D)
 
 
-def decode_step_flops(d: Dims, n_live: int, keys: int) -> float:
-    """One decode step over ``n_live`` slots attending over ``keys`` keys in
-    all (each slot's new token included)."""
-    return n_live * 2.0 * (d.body_params + d.V * d.D) + d.L * 4.0 * keys * d.H * d.Dh
+def step_keys(d: Dims, i: int, lens: Sequence[int],
+              shared: Sequence[Tuple[int, int, int]] = ()) -> Tuple[int, int]:
+    """(keys attended, K/V tokens read) in layer i by one decode step over
+    slots holding ``lens`` keys each, its new token included. ``shared``:
+    (slots beyond the first, prefix tokens, keys) of each forked group whose
+    shared prefix pages are read once: the part of that prefix the layer
+    attends is read once for the group."""
+    keys = sum(attended(d, i, n) for n in lens)
+    read = keys - sum(extra * max(0, prefix - (n - attended(d, i, n)))
+                      for extra, prefix, n in shared)
+    return keys, read
+
+
+def decode_step_flops(d: Dims, lens: Sequence[int]) -> float:
+    """One decode step over live slots holding ``lens`` keys each (each
+    slot's new token included)."""
+    attn = sum(k * d.pair_flops(i) * step_keys(d, i, lens)[0] for i, k in d.kinds())
+    return len(lens) * 2.0 * (d.body_params + d.V * d.D) + attn
 
 
 def kv_bytes_per_token(d: Dims) -> int:
     """K and V of one token over every layer, bf16."""
-    return d.L * 2 * d.Hkv * d.Dh * BF16
+    return sum(k * d.kv_bytes(i) for i, k in d.kinds())
 
 
-def decode_step_bytes(d: Dims, n_live: int, kv_tokens_read: int) -> float:
-    """Every decoder weight read once (lm_head included, the embedding table
-    not), the K/V of ``kv_tokens_read`` tokens read once, and each live
-    slot's new K/V written."""
-    weights = (d.body_params + d.V * d.D) * BF16
-    return weights + (kv_tokens_read + n_live) * kv_bytes_per_token(d)
+def decode_step_bytes(d: Dims, lens: Sequence[int], shared: Sequence[Tuple[int, int, int]] = (),
+                      counts: Optional[dict] = None) -> float:
+    """The weights the step reads (``counts``: the program's report of the
+    step, where the architecture reads only some), the K/V each layer reads
+    once, and each live slot's new K/V written."""
+    kv = sum(k * (step_keys(d, i, lens, shared)[1] + len(lens)) * d.kv_bytes(i)
+             for i, k in d.kinds())
+    return d.decode_weight_bytes(counts) + kv
 
 
-def decode_step_bound_s(d: Dims, n_live: int, keys: int, kv_tokens_read: int) -> float:
-    return bound_s(decode_step_flops(d, n_live, keys),
-                   decode_step_bytes(d, n_live, kv_tokens_read))
+def decode_step_bound_s(d: Dims, lens: Sequence[int],
+                        shared: Sequence[Tuple[int, int, int]] = (),
+                        counts: Optional[dict] = None) -> float:
+    return bound_s(decode_step_flops(d, lens), decode_step_bytes(d, lens, shared, counts))
 
 
 def train_step_flops(d: Dims, lens: Iterable[int], labelled: Iterable[int],
@@ -101,8 +128,7 @@ def train_step_flops(d: Dims, lens: Iterable[int], labelled: Iterable[int],
     frozen tower's forward and the projector's forward and backward (with
     its weight gradient: 6 per parameter per image token)."""
     lens = list(lens)
-    dec = sum(4.0 * d.body_params * n + 3.5 * d.L * attn_fwd_flops(d, causal_pairs(n))
-              for n in lens)
+    dec = sum(4.0 * d.body_params * n + 3.5 * attn_fwd_flops(d, n) for n in lens)
     head = 4.0 * d.V * d.D * sum(labelled)
     img = images * (tower_flops(d) + 6.0 * d.n_patches * projector_matmul_params(d))
     return dec + head + img
@@ -126,13 +152,21 @@ def k4_bound_s(d: Dims, n_live: int, keys_sum: int, kv_tokens_read: int) -> floa
     return bound_s(flops, nbytes)
 
 
-def flash_bounds_s(d: Dims, lens: Iterable[int]) -> dict:
-    """K1 (forward), K2a (dQ), K2b (dK, dV) in one layer over rows of valid
-    lengths ``lens``: causal pairs over the valid keys. K1: QK^T, PV (4 per
-    pair and head dim); K2a: QK^T, dO V^T, dS K (6); K2b: QK^T, dO V^T,
-    P^T dO, dS^T Q (8). Bytes: each tensor read or written once."""
+def k4_step_bound_s(d: Dims, lens: Sequence[int],
+                    shared: Sequence[Tuple[int, int, int]] = ()) -> float:
+    """K4 over every layer of one decode step (one launch a layer)."""
+    return sum(k * k4_bound_s(d, len(lens), *step_keys(d, i, lens, shared))
+               for i, k in d.kinds())
+
+
+def flash_bounds_s(d: Dims, lens: Iterable[int], layer: int = 0) -> dict:
+    """K1 (forward), K2a (dQ), K2b (dK, dV) in one layer (``layer``'s kind)
+    over rows of valid lengths ``lens``: causal pairs over the valid keys.
+    K1: QK^T, PV (4 per pair and head dim); K2a: QK^T, dO V^T, dS K (6);
+    K2b: QK^T, dO V^T, P^T dO, dS^T Q (8). Bytes: each tensor read or
+    written once."""
     lens = list(lens)
-    pairs = sum(causal_pairs(n) for n in lens)
+    pairs = sum(d.pairs(layer, n) for n in lens)
     tok = sum(lens)
     hd = d.H * d.Dh
     kvd = d.Hkv * d.Dh

@@ -9,7 +9,8 @@ the plain reference, and prints one JSON line as the last line of its
 standard output: the cell's end-to-end metrics with ``--trace 0``, its
 per-layer metrics (and the device's busy seconds and a breakdown) with
 ``--trace 1``. It needs the NVIDIA card: without one it exits with code 2
-and prints no result.
+and prints no result. It prints none either, and exits with code 3, where
+JAX or the JAX package was loaded by the time the window closed.
 """
 
 from __future__ import annotations
@@ -75,7 +76,12 @@ def main(argv=None) -> int:
     harness.driver(wl["driver"]).run(run)
     info = {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": chips,
             "memory_peak_bytes": run.memory_peak_bytes}
-    harness.emit(harness.result(run, bench, args.workload, info), run)
+    out = harness.result(run, bench, args.workload, info)
+    found = harness.jax_modules()
+    if found:
+        print(f"JAX loaded in the measured process: {found}; no result", file=sys.stderr)
+        return 3
+    harness.emit(out, run)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Configurations and cells by name: the files under ``configs/`` and
-``workloads/``, and the sizes the harness reads from them.
+"""Configurations, cells and decoder architectures by name: the files under
+``configs/``, ``workloads/`` and ``arch/``, and the sizes the harness reads
+from them.
 
 Nothing here imports the program: the reference and the roofline counts
 take their sizes from these files alone.
@@ -8,11 +9,13 @@ take their sizes from these files alone.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import sys
 from pathlib import Path
-from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
+ARCH_DIR = ROOT / "arch"
 
 
 def load_config(name: str) -> dict:
@@ -25,21 +28,41 @@ def load_workload(name: str) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Dims:
-    """The sizes of one configuration: the decoder's published keys and the
-    tower's, and the projector between them."""
+    """The sizes of one configuration that every architecture shares: the
+    decoder's residual width, depth, vocabulary, final norm and EOS, and the
+    tower's and projector's.
+
+    An architecture (``arch/<name>.py``, named by the configuration's
+    ``"arch"``) subclasses this with its own sizes and provides, per layer
+    index ``i``:
+
+    - ``kinds()``: [(i, n)], one layer index for each kind of layer and how
+      many layers are of that kind (the counts below are alike within one);
+    - ``params(i)``: the layer's parameters; ``active_params(i)``: those a
+      token multiplies by; ``pairs(i, n)``: the (query, key) pairs an n-token
+      causal sequence attends in the layer; ``pair_flops(i)``: the attention's
+      forward FLOPs per pair; ``kv_bytes(i)``: the K/V bytes one token holds;
+    - ``decode_weight_bytes(counts)``: the weight bytes a decode step reads
+      (``counts``: what the program reports of the step, such as the experts
+      it touched; None where the step reads every weight);
+    - ``layer_blocks(i)``: [(block tag, entries)] of the seeded weights
+      (``weights.make_block``);
+    - ``program_config(cfg)``: the program's decoder config, through its
+      public entry points; ``fill_layer(layer, W, i)``: the program's layer
+      ``i`` filled from the layer's blocks;
+    - ``ref_tables(n, device)`` and ``ref_layer(i, x, W, tables, prec)``: the
+      plain float32 reference layer over one sequence (``reference/``);
+
+    and, at module level, ``dims(cfg)`` and ``TINY``, the decoder keys of its
+    CPU rehearsals. The kernel bounds of K1, K2 and K4 (``roofline.py``) read
+    the grouped-query heads ``H``, ``Hkv`` and ``Dh`` of an architecture that
+    runs those kernels.
+    """
 
     D: int
     L: int
-    H: int
-    Hkv: int
-    Dh: int
-    F: int
     V: int
-    gated: bool
     tied: bool
-    act: str
-    rope_theta: float
-    rope_scaling: Optional[dict]
     eps: float
     eos: int
     # tower
@@ -61,26 +84,18 @@ class Dims:
 
     # parameter counts ------------------------------------------------
     @property
-    def layer_params(self) -> int:
-        """One decoder layer: projections, MLP, norms (and qk-norm)."""
-        D, H, Hkv, Dh, F = self.D, self.H, self.Hkv, self.Dh, self.F
-        attn = D * H * Dh + 2 * D * Hkv * Dh + H * Dh * D
-        mlp = (3 if self.gated else 2) * D * F
-        norms = 2 * D + 2 * Dh + (0 if self.gated else 2)  # qk-norm; xIELU's two alphas
-        return attn + mlp + norms
-
-    @property
     def decoder_params(self) -> int:
         """The published count: layers, final norm, embedding and (untied)
         head."""
         head = 0 if self.tied else self.V * self.D
-        return self.L * self.layer_params + self.D + self.V * self.D + head
+        layers = sum(n * self.params(i) for i, n in self.kinds())
+        return layers + self.D + self.V * self.D + head
 
     @property
     def body_params(self) -> int:
         """What a token's forward multiplies by, the head and embedding left
         out: the layers and the final norm."""
-        return self.L * self.layer_params + self.D
+        return sum(n * self.active_params(i) for i, n in self.kinds()) + self.D
 
     @property
     def tower_layer_params(self) -> int:
@@ -99,20 +114,48 @@ class Dims:
         return Dv * Dv + Dv + Dv * D + D + D * D + D
 
 
-def dims(cfg: dict) -> Dims:
+def shared_dims(cfg: dict) -> dict:
+    """The fields of :class:`Dims` from a configuration: its architecture's
+    ``dims`` adds its own."""
     d, t = cfg["decoder"], cfg["tower"]
-    mt = d.get("model_type", "llama")
-    return Dims(
-        D=d["hidden_size"], L=d["num_hidden_layers"], H=d["num_attention_heads"],
-        Hkv=d.get("num_key_value_heads", d["num_attention_heads"]),
-        Dh=d.get("head_dim") or d["hidden_size"] // d["num_attention_heads"],
-        F=d["intermediate_size"], V=d["vocab_size"], gated=mt != "apertus",
-        tied=bool(d.get("tie_word_embeddings", False)), act=d.get("hidden_act", "silu"),
-        rope_theta=float(d.get("rope_theta", 10000.0)), rope_scaling=d.get("rope_scaling"),
+    return dict(
+        D=d["hidden_size"], L=d["num_hidden_layers"], V=d["vocab_size"],
+        tied=bool(d.get("tie_word_embeddings", False)),
         eps=float(d.get("rms_norm_eps", 1e-5)), eos=int(d.get("eos_token_id", 0)),
         img=t["image_size"], patch=t["patch_size"], Dv=t["hidden_size"],
         Lv=t["num_hidden_layers"], Hv=t["num_attention_heads"], Fv=t["intermediate_size"],
         eps_v=float(t.get("layer_norm_eps", 1e-5)))
+
+
+def load_module(path: Path):
+    """A file of the harness loaded by its path, once."""
+    path = Path(path).resolve()
+    name = f"bench_{path.parent.name}_{path.stem}".replace("-", "_").replace(".", "_")
+    mod = sys.modules.get(name)
+    if mod is not None and Path(mod.__file__).resolve() == path:
+        return mod
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    sys.modules[name] = mod  # dataclasses look their module up while it loads
+    try:
+        mod_spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
+def architecture(name: str):
+    """``arch/<name>.py``: the decoder architecture a configuration names."""
+    path = ARCH_DIR / f"{name}.py"
+    if not path.is_file():
+        have = sorted(p.stem for p in ARCH_DIR.glob("*.py"))
+        raise FileNotFoundError(f"no architecture {name!r}: {ARCH_DIR} holds {have}")
+    return load_module(path)
+
+
+def dims(cfg: dict) -> Dims:
+    return architecture(cfg["arch"]).dims(cfg)
 
 
 def shrink(cfg: dict, **decoder_keys) -> dict:

@@ -62,3 +62,18 @@ def test_measured_command_refuses_without_a_card():
                         "apertus-8b.chat-img", "--seed", "1", "--seconds", "1", "--trace", "0"],
                        capture_output=True, text=True, cwd=harness.REPO, timeout=120)
     assert p.returncode != 0 and p.stdout == ""
+
+
+def test_jax_modules_are_named_by_their_whole_top_level_name(monkeypatch):
+    import sys
+    import types
+
+    for name in list(sys.modules):
+        if name.split(".")[0] in harness.JAX_NAMES:
+            monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "multimeditron_torch_x", types.ModuleType("x"))
+    monkeypatch.setitem(sys.modules, "jaxtyping", types.ModuleType("x"))
+    assert harness.jax_modules() == []
+    monkeypatch.setitem(sys.modules, "jax.numpy", types.ModuleType("x"))
+    monkeypatch.setitem(sys.modules, "multimeditron_tpu.models", types.ModuleType("x"))
+    assert harness.jax_modules() == ["jax", "multimeditron_tpu"]

@@ -252,3 +252,44 @@ def test_replay_gives_the_harness_decode_batch(tracer_on):
             elif s["name"] == "decode.step" and s["attrs"]["ran"]:
                 steps += 1
     assert steps > 0 and tokens / steps == pytest.approx(readers.decode_batch(run))
+
+
+def _host_ops_as_device(real):
+    """``progtrace.timeline`` with the profile's top-level host operations
+    standing in for device kernels, each launched at its start: a CPU
+    profile holds no device activity for the device-trace readers to read."""
+    import devtrace
+
+    def timeline(prof):
+        tl = real(prof)
+        t0 = tl["trace_start_ns"]
+        ops = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+               if e.cpu_parent is None and e.name.startswith("aten::")]
+        ns = [(t0 + int(round(a * 1e3)), t0 + int(round(b * 1e3)), n) for a, b, n in ops]
+        _, gaps = devtrace._union([(a, b) for a, b, _ in ns])
+        return dict(tl, device=sorted((a, b, n, a) for a, b, n in ns), gaps=gaps)
+    return timeline
+
+
+TRACED = {
+    "apertus-8b.chat-img": ("decode_host_ms.tpot", "decode_idle_ms.tpot",
+                            "prefill_span_mfu.ttft"),
+    "apertus-8b.grpo-rollout": ("decode_host_ms.batch", "decode_idle_ms.batch"),
+    "qwen3-4b.align-train": ("loss_device_ms.train",),
+}
+
+
+@pytest.mark.parametrize("cell", list(TRACED))
+def test_traced_rehearsal_reads_the_programs_spans(cell, monkeypatch):
+    """The measured command's traced run as it stands: set-up turns the
+    tracer on and the stretch keeps its timeline, so each reader of the
+    program's spans reads a value."""
+    from multimeditron_torch.profiling import tracer
+
+    monkeypatch.setattr(progtrace, "timeline", _host_ops_as_device(progtrace.timeline))
+    tracer.disable()
+    out, run = rehearse.rehearse(cell, SEED + 2, seconds=1.5, trace=True,
+                                 overrides={"trace_s": 0.5})
+    assert tracer.on and out["correct"], (out, run.notes)
+    for name in TRACED[cell]:
+        assert name in out["metrics"] and out["metrics"][name]["value"] >= 0, (name, out)

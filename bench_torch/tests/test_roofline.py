@@ -7,9 +7,9 @@ import pytest
 import roofline
 import spec
 
-TINY = spec.Dims(D=4, L=1, H=2, Hkv=1, Dh=2, F=8, V=10, gated=True, tied=False, act="silu",
-                 rope_theta=1e4, rope_scaling=None, eps=1e-6, eos=0, img=28, patch=14, Dv=4,
-                 Lv=1, Hv=2, Fv=8, eps_v=1e-5)
+TINY = spec.architecture("dense").Dims(
+    D=4, L=1, H=2, Hkv=1, Dh=2, F=8, V=10, gated=True, tied=False, act="silu", rope_theta=1e4,
+    rope_scaling=None, eps=1e-6, eos=0, img=28, patch=14, Dv=4, Lv=1, Hv=2, Fv=8, eps_v=1e-5)
 
 
 def test_parameter_counts_by_hand():
@@ -29,10 +29,10 @@ def test_parameter_counts_by_hand():
 
 def test_decode_step_by_hand():
     # one slot attending over 3 keys: 2 x (160 + 40) + 4 x 3 x 2 x 2
-    assert roofline.decode_step_flops(TINY, 1, 3) == 448
+    assert roofline.decode_step_flops(TINY, [3]) == 448
     # weights (160 + 40) x 2 bytes; K/V of 3 read + 1 written, 1 layer x 2 x 1 x 2 x 2
-    assert roofline.decode_step_bytes(TINY, 1, 3) == 400 + 4 * 8
-    assert roofline.decode_step_bound_s(TINY, 1, 3, 3) == pytest.approx(
+    assert roofline.decode_step_bytes(TINY, [3]) == 400 + 4 * 8
+    assert roofline.decode_step_bound_s(TINY, [3]) == pytest.approx(
         max(448 / roofline.PEAK_BF16, 432 / roofline.HBM_BYTES_PER_S))
 
 
@@ -67,11 +67,22 @@ def test_kernel_bounds_by_hand():
     assert b["k2a"] >= b["k1"] and b["k2b"] >= b["k1"]
 
 
+def test_forked_decode_step_by_hand():
+    # slots of 5, 5 and 7 keys; the two of 5 a forked group sharing a 4-token
+    # prefix read once: 17 keys attended, 13 K/V tokens read
+    lens, shared = [5, 5, 7], ((1, 4, 5),)
+    assert roofline.step_keys(TINY, 0, lens, shared) == (17, 13)
+    # weights 400 bytes; K/V of 13 read + 3 written, 8 bytes a token
+    assert roofline.decode_step_bytes(TINY, lens, shared) == 400 + 16 * 8
+    two = dataclasses.replace(TINY, L=2)
+    assert roofline.k4_step_bound_s(two, lens, shared) == 2 * roofline.k4_bound_s(two, 3, 17, 13)
+
+
 def test_no_share_of_the_full_size_can_pass_its_bound():
     """A decode step over 32 slots of 1,000 keys is bound by its bytes,
     and its bound is over the weights' read time alone."""
     d = spec.dims(spec.load_config("apertus-8b-clip-l14"))
-    t = roofline.decode_step_bound_s(d, 32, 32_000, 32_000)
+    t = roofline.decode_step_bound_s(d, [1000] * 32)
     weights = (d.body_params + d.V * d.D) * 2 / roofline.HBM_BYTES_PER_S
     assert t > weights
-    assert roofline.decode_step_flops(d, 32, 32_000) / roofline.PEAK_BF16 < t
+    assert roofline.decode_step_flops(d, [1000] * 32) / roofline.PEAK_BF16 < t

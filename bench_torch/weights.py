@@ -1,6 +1,7 @@
 """Seeded random weights, made on the device in one call per block.
 
-A block is a decoder layer, a tower layer, the embedding, the head, the
+A block is one of a decoder layer's blocks, as its architecture lays them
+out (``arch/<name>.py``), a tower layer, the embedding, the head, the
 tower's stem or the projector. Each block is one ``torch.randn`` of all its
 matrices and biases together, from a generator seeded by (run seed, block
 name), scaled piece by piece and cast to the served dtype. So any block can
@@ -10,8 +11,8 @@ weight that the program holds.
 
 Scales: N(0, 1/fan_in) for every matrix (the repo's own init), N(0, 1/D) for
 the embedding and position tables, N(0, 0.02^2) for biases. Norms are ones
-and zeros, and Apertus' xIELU alphas take their published initial values
-(softplus-inverse of 0.8 and 0.3).
+and zeros; other constants of a layer are its architecture's
+(``arch/<name>.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ from spec import Dims
 Entry = Tuple[str, Tuple[int, ...], float]  # name, shape, std
 
 BIAS_STD = 0.02
-XIELU_ALPHA_P = math.log(math.expm1(0.8))
-XIELU_ALPHA_N = math.log(math.expm1(0.3))
 
 
 def block_seed(seed: int, tag: str) -> int:
@@ -49,17 +48,8 @@ def make_block(seed: int, tag: str, entries: List[Entry], device,
     return out
 
 
-def _dense(name: str, out_f: int, in_f: int) -> Entry:
+def matrix(name: str, out_f: int, in_f: int) -> Entry:
     return (name, (out_f, in_f), in_f ** -0.5)
-
-
-def decoder_layer_entries(d: Dims) -> List[Entry]:
-    D, H, Hkv, Dh, F = d.D, d.H, d.Hkv, d.Dh, d.F
-    entries = [_dense("q", H * Dh, D), _dense("k", Hkv * Dh, D), _dense("v", Hkv * Dh, D),
-               _dense("o", D, H * Dh)]
-    if d.gated:
-        entries.append(_dense("gate", F, D))
-    return entries + [_dense("up", F, D), _dense("down", D, F)]
 
 
 def embed_entries(d: Dims) -> List[Entry]:
@@ -72,7 +62,7 @@ def head_entries(d: Dims) -> List[Entry]:
 
 def tower_stem_entries(d: Dims) -> List[Entry]:
     P = d.patch
-    return [_dense("patch", d.Dv, P * P * 3), ("position", (d.tower_seq, d.Dv), d.Dv ** -0.5),
+    return [matrix("patch", d.Dv, P * P * 3), ("position", (d.tower_seq, d.Dv), d.Dv ** -0.5),
             ("cls", (d.Dv,), d.Dv ** -0.5)]
 
 
@@ -80,20 +70,24 @@ def tower_layer_entries(d: Dims) -> List[Entry]:
     Dv, Fv = d.Dv, d.Fv
     out: List[Entry] = []
     for name in ("q", "k", "v", "o"):
-        out += [_dense(name, Dv, Dv), (name + "_b", (Dv,), BIAS_STD)]
-    return out + [_dense("fc1", Fv, Dv), ("fc1_b", (Fv,), BIAS_STD),
-                  _dense("fc2", Dv, Fv), ("fc2_b", (Dv,), BIAS_STD)]
+        out += [matrix(name, Dv, Dv), (name + "_b", (Dv,), BIAS_STD)]
+    return out + [matrix("fc1", Fv, Dv), ("fc1_b", (Fv,), BIAS_STD),
+                  matrix("fc2", Dv, Fv), ("fc2_b", (Dv,), BIAS_STD)]
 
 
 def projector_entries(d: Dims) -> List[Entry]:
     Dv, D = d.Dv, d.D
-    return [_dense("fc1", Dv, Dv), ("fc1_b", (Dv,), BIAS_STD),
-            _dense("fc2", D, Dv), ("fc2_b", (D,), BIAS_STD),
-            _dense("fc3", D, D), ("fc3_b", (D,), BIAS_STD)]
+    return [matrix("fc1", Dv, Dv), ("fc1_b", (Dv,), BIAS_STD),
+            matrix("fc2", D, Dv), ("fc2_b", (D,), BIAS_STD),
+            matrix("fc3", D, D), ("fc3_b", (D,), BIAS_STD)]
 
 
 def decoder_layer(seed: int, d: Dims, i: int, device, dtype=torch.bfloat16):
-    return make_block(seed, f"decoder.layer.{i}", decoder_layer_entries(d), device, dtype)
+    """Layer ``i``'s entries, from its architecture's blocks."""
+    out = {}
+    for tag, entries in d.layer_blocks(i):
+        out.update(make_block(seed, tag, entries, device, dtype))
+    return out
 
 
 def embed(seed: int, d: Dims, device, dtype=torch.bfloat16) -> torch.Tensor:
