@@ -1,8 +1,10 @@
 """Drive the PyTorch port (multimeditron_torch) once on one NVIDIA GPU.
 
-Run from the repository root, with no arguments:
+Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mellum-only]
+
+(``--mellum-only``: phases 1, 2 and 14 alone).
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -104,7 +106,18 @@ Phases, each of which raises on failure (non-zero exit):
    image each, 64 new tokens, greedy (K1 32 times a live step); then K8
    through its own entry point: the slab run's cache laid out in pages
    through a shuffled page table, one paged_attention call a layer, against
-   K1 over the contiguous cache.
+   K1 over the contiguous cache;
+14. Mellum2-12B-A2.5B at full width (the GRPO cell's model): the
+   grouped-expert kernel against its twin at a 128-slot decode step and a
+   1,024-token prefill chunk (D 2,304, 64 experts of 896, top 8) and K4
+   with the 1,024-key window against its twin over the cell's mix of
+   lengths and over 3,000 keys (also with no window, which must be slower),
+   each tolerance shown to miss a one-expert or one-tile error, with
+   device time and bound; then the engine on the whole model (5 requests
+   of 400-1,300 prompt tokens and a forked group of 4, one image each, 64
+   new tokens): every decode step a graph replay, the expert kernel 28
+   times a step and a prefill call's, K4 28 times a step, from the counted
+   round's device records.
 
 Phase 3 also holds K9 (the weight-only int8 matmul) against its twin at the
 Llama-3.1-8B projection shapes (M = 8, 40 and 4,096, and the lm_head at
@@ -122,6 +135,7 @@ then {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import gc
+import argparse
 import json
 import re
 import statistics
@@ -2346,7 +2360,225 @@ def run_other_calibrations(model: MultimodalModel, n_batches: int = 8, batch: in
     return out
 
 
-def main() -> int:
+# ----------------------------------------------------------------------
+# Phase 14: Mellum2-12B-A2.5B at full width: the grouped-expert kernel and
+# K4 with a window against their twins at the GRPO cell's shapes, then the
+# serving engine on the whole model
+
+MELLUM_CONFIG = "bench_torch/configs/mellum2-12b-a2.5b-clip-l14.json"
+# each kernel's device records, a decode graph's replays included: the route
+# launch stands for the expert kernel's four (route, gate-up, down, combine)
+MELLUM_KERNELS = {"grouped_experts": r"\bgrouped_experts_route_kernel\b",
+                  "ring_decode_attention": GRAPH_KERNELS["ring_decode_attention"]}
+
+
+def mellum_k4_case(gen, lengths, T: int = 16):
+    """K4 at Mellum2-12B's decode shape: 32 heads over 4 kv heads, D = 128,
+    pages of 128, a T-row ring with 8 rows in use; slot b holds lengths[b]
+    keys, its own included, in a shuffled page table; one layer's pool."""
+    B, H, Hkv, D, P = len(lengths), 32, 4, 128, 128
+    pm = -(-max(lengths) // P) + 1
+    n_pages = 1 + B * pm
+    ids = np.random.default_rng(5).permutation(np.arange(1, n_pages)).reshape(B, pm)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda") - 1
+    plen = lens - 7
+    return (randn(B, H, D), randn(1, Hkv, n_pages, P, D), randn(1, Hkv, n_pages, P, D),
+            randn(1, B, Hkv, T, D), randn(1, B, Hkv, T, D),
+            torch.from_numpy(ids.astype(np.int32)).cuda(), plen, lens)
+
+
+def grpo_long_lengths(seed: int = 4) -> list:
+    """128 slots' keys in the GRPO cell: prompts of 320-1,280 tokens, up to
+    2,048 generated."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(320, 1281, 128) + rng.integers(0, 2049, 128)).tolist()
+
+
+def check_windowed_k4(gen) -> dict:
+    """K4 with Mellum2's 1,024-key window against its twin, over the GRPO
+    cell's mix of lengths and over 3,000 keys a slot (also with no window).
+    The bf16 tolerance is 1% of the largest output: the twin with the window
+    one 64-key tile wider misses it by far more."""
+    out = {}
+    for tag, lengths in (("cell mix", grpo_long_lengths()), ("3000 keys", [3000] * 128)):
+        args = mellum_k4_case(gen, lengths)
+        B, H, D = args[0].shape
+        Hkv = args[1].shape[1]
+        for window in (1024, 0):
+            if tag == "cell mix" and window == 0:
+                continue
+            want = paged.ring_decode_attention_plain(*args, 0, window=window)
+            tol = 1e-2 * want.float().abs().max().item()
+            err = check_close(f"K4 bf16 Mellum2 {tag}, window {window}",
+                              paged.ring_decode_attention(*args, 0, window=window), want, tol)
+            if window:
+                wider = (paged.ring_decode_attention_plain(*args, 0, window=window + 64).float()
+                         - want.float()).abs().max().item()
+                log(f"  the twin with a window of {window + 64}: {wider:.3e} from it")
+                if not wider > 5 * tol:
+                    raise AssertionError(f"K4 window tolerance {tol} does not tell a window "
+                                         f"one tile wider ({wider})")
+            keys = sum(min(n, window) if window else n for n in lengths)
+
+            def run(window=window):
+                return paged.ring_decode_attention(*args, 0, window=window)
+
+            out[f"{tag}, window {window}"] = r = dict(
+                max_abs_err=err, tol=tol, ms=time_ms(run), device_ms=device_ms(run, n=16),
+                plain_ms=time_ms(lambda: paged.ring_decode_attention_plain(*args, 0,
+                                                                           window=window)),
+                **bound(torch.bfloat16, (2 * keys * Hkv * D + 2 * B * H * D) * 2,
+                        4 * H * D * keys))
+            log(f"  K4 Mellum2 {tag}, window {window}: kernel {r['ms']:.4f} ms (device "
+                f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    if not out["3000 keys, window 1024"]["ms"] < 0.7 * out["3000 keys, window 0"]["ms"]:
+        raise AssertionError("K4 over 3,000 keys is not faster with a 1,024-key window: "
+                             "the pages before the window were read")
+    return out
+
+
+def check_grouped_experts(gen) -> dict:
+    """The grouped-expert kernel against its twin at Mellum2's widths (D
+    2,304, 64 experts of 896, top 8 of a softmax, renormalised; expert 63
+    chosen by no token): a 128-slot decode step and a 1,024-token prefill
+    chunk. The twin without each token's 8th expert misses the output by far
+    more than the bf16 tolerance."""
+    from multimeditron_torch.ops import grouped_experts as ge
+
+    E, F_, D, k = 64, 896, 2304, 8
+    w = [torch.randn(*shape, generator=gen, device="cuda").mul_(fan ** -0.5).bfloat16()
+         for shape, fan in (((E, F_, D), D), ((E, F_, D), D), ((E, D, F_), F_))]
+    out = {}
+    for tag, N in (("decode 128 slots", 128), ("prefill 1024 tokens", 1024)):
+        x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
+        scores = torch.randn(N, E, generator=gen, device="cuda")
+        scores[:, E - 1] = float("-inf")
+        top, ids = torch.topk(torch.softmax(scores, dim=-1), k, dim=-1)
+        top = top / top.sum(dim=-1, keepdim=True)
+        stats, twin_stats = (torch.zeros(2, dtype=torch.int64, device="cuda") for _ in range(2))
+        want = ge.grouped_experts_plain(x, ids, top, *w, twin_stats)
+        err = check_close(f"grouped experts {tag}", ge.grouped_experts(x, ids, top, *w, stats),
+                          want, TOL[torch.bfloat16])
+        if not torch.equal(stats, twin_stats):
+            raise AssertionError(f"grouped experts {tag}: counters {stats.tolist()} against "
+                                 f"the twin's {twin_stats.tolist()}")
+        seven = top[:, :7] / top[:, :7].sum(dim=-1, keepdim=True)
+        short = (ge.grouped_experts_plain(x, ids[:, :7].contiguous(), seven, *w).float()
+                 - want.float()).abs().max().item()
+        log(f"  the twin without each token's 8th expert: {short:.3e} from it")
+        if not short > 5 * TOL[torch.bfloat16]:
+            raise AssertionError(f"the expert tolerance does not tell a lost expert ({short})")
+        touched, assignments = (int(v) for v in stats)
+        weight_bytes = touched * 3 * D * F_ * 2
+        io_bytes = 2 * N * D * 2 + N * k * (8 + 4)  # x in, y out; ids and weights
+
+        def run(x=x, ids=ids, top=top):
+            return ge.grouped_experts(x, ids, top, *w)
+
+        out[tag] = r = dict(
+            max_abs_err=err, experts_touched=touched, assignments=assignments, ms=time_ms(run),
+            device_ms=device_ms(run, n=16), plain_ms=time_ms(
+                lambda x=x, ids=ids, top=top: ge.grouped_experts_plain(x, ids, top, *w)),
+            **bound(torch.bfloat16, weight_bytes + io_bytes, 6 * D * F_ * assignments))
+        log(f"  grouped experts {tag}: kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
+            f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+            f"{touched} experts touched")
+    return out
+
+
+def mellum_model() -> MultimodalModel:
+    """Mellum2-12B-A2.5B's published decoder keys + the CLIP ViT-L/14 tower,
+    bf16, seeded."""
+    with open(MELLUM_CONFIG) as f:
+        hf = json.load(f)["decoder"]
+    img = ImageConfig(model_type="meditron_clip", hidden_size=hf["hidden_size"], clip_name="",
+                      param_dtype="bfloat16", wire_dtype="uint8")
+    model = MultimodalModel(MultimodalConfig(llm=LlamaConfig.from_hf_dict(hf), modalities=[img],
+                                             eos_token_idx=1), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def run_mellum_full_width() -> dict:
+    """The engine on the whole of Mellum2-12B: 5 requests of 400-1,300
+    prompt tokens (past 1,024 in two chunks) and a forked group of 4 over
+    800, one image each, 64 new tokens, so that the windowed layers drop
+    keys. A warm-up round captures the decode graph; in the counted round,
+    under torch.profiler, every decode step replays it: the expert kernel
+    runs 28 times a step and an eager prefill call's, K4 28 times a step."""
+    from multimeditron_torch.ops import grouped_experts as ge
+
+    t0 = time.perf_counter()
+    model = mellum_model()
+    torch.cuda.synchronize()
+    L = model.config.llm.num_layers
+    log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(model, EngineConfig(
+        max_slots=16, max_seq_len=1408, prefill_buckets=(512, 1024), page_size=128,
+        decode_chunk=8, temperature=1.0))
+    vocab = model.config.llm.vocab_size
+    rng = np.random.default_rng(0)
+
+    def submit_all(budget):
+        reqs = [engine.submit(make_request(rng, vocab, n, image_size=224, patch=14),
+                              max_new_tokens=budget) for n in (1300, 1100, 900, 600, 400)]
+        return reqs + engine.submit_group(make_request(rng, vocab, 800, image_size=224,
+                                                       patch=14), 4, max_new_tokens=budget)
+
+    submit_all(4)
+    engine.run()
+    ge.launches["grouped_experts"] = 0
+    reset_launch_counts(("ring_decode_attention",))
+    for name in ("n_prefill_calls", "n_decode_steps", "n_decode_chunks", "n_decode_graph_steps",
+                 "n_experts_touched", "n_expert_assignments"):
+        setattr(engine, name, 0)
+    t0 = time.perf_counter()
+    reqs = submit_all(64)
+    records = device_records(engine.run, MELLUM_KERNELS)
+    wall = time.perf_counter() - t0
+    check_requests(reqs, vocab)
+    steps = engine.n_decode_steps
+    work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=steps,
+                decode_graph_steps=engine.n_decode_graph_steps,
+                experts_touched_per_layer_step=engine.n_experts_touched / max(1, L * steps),
+                host_expert_launches=ge.launches["grouped_experts"], wall_s=wall)
+    log(f"  device records {records}; work {work}")
+    if work["decode_graph_steps"] != steps or steps == 0:
+        raise AssertionError(f"a decode step ran outside the graph: {work}")
+    # the prefill's calls are eager (counted on the host); each decode step
+    # replays L of them
+    if records["grouped_experts"] != work["host_expert_launches"] + L * steps:
+        raise AssertionError(f"expert kernel launches {records['grouped_experts']}, not "
+                             f"{work['host_expert_launches']} + {L} x {steps}")
+    if records["ring_decode_attention"] < L * steps:
+        raise AssertionError(f"K4 launched fewer than {L} times per decode step: {records}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=records, memory_peak_gb=peak, **work)
+
+
+def mellum_phase() -> dict:
+    phase("[14] full width Mellum2-12B-A2.5B: the grouped-expert kernel and K4 with a window "
+          "against their twins at the GRPO cell's shapes; the engine on the whole model")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    kernels = {"grouped_experts": check_grouped_experts(gen),
+               "ring_decode_attention_window": check_windowed_k4(gen)}
+    torch.cuda.empty_cache()
+    return dict(kernels=kernels, engine=run_mellum_full_width())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mellum-only", action="store_true", help="phases 1, 2 and 14 alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2372,6 +2604,15 @@ def main() -> int:
                 f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes spill loads")
         for line in report["warnings"]:
             log(f"  ptxas -v {source}: {line}")
+
+    if args.mellum_only:
+        mellum = mellum_phase()
+        print(json.dumps({"mellum_full_width": mellum}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("[3] kernels vs plain twins (times: median of 20 calls, of 10 for flash; ms)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2469,6 +2710,10 @@ def main() -> int:
           "generate() on 8 x 512 tokens; K8 over the slab cache")
     model.modalities["image"].embedder_q = None  # phase 5's bf16 tower
     slab = run_slab_full_width(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mellum = mellum_phase()
 
     # each kernel's launches in the full-width run of its path
     launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
@@ -2502,6 +2747,7 @@ def main() -> int:
                       "full_width_w8a16": llm_w8a16}))
     print(json.dumps({"other_calibrations": others}))
     print(json.dumps({"slab_full_width": slab}))
+    print(json.dumps({"mellum_full_width": mellum}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,13 @@ ViT-L/14 encode shape (256 images, M = 65,792 rows), the weight-only int8
 matmul K9 in bf16 at the Llama-3.1-8B projection shapes (decode M = 8 with
 the lm_head, verify M = 40 and the W8A16 prefill's M = 4,096), and the
 paged decode attention K4 and K8 in bf16 at chip_smoke.py phase 3's cases
-(K4's ragged case and phase 5's shape, K8's serving case and 4,096 tokens).
+(K4's ragged case and phase 5's shape, K8's serving case and 4,096 tokens),
+K4 at Mellum2-12B's decode shape (128 slots, 32 / 4 heads, D = 128) over
+3,000 keys with and without its 1,024-key window and over the GRPO cell's
+mix of lengths, and the grouped-expert kernel at Mellum2-12B's widths (D =
+2,304, 64 experts of F = 896, top-8) for a 128-slot decode step and a
+1,024-token prefill chunk. A tree without K4's window or without the
+grouped-expert entry skips those cases.
 
     python3 kernel_ab.py [--only NAME[,NAME...]] [SOURCE_DIR ...]
 
@@ -41,6 +47,7 @@ import torch
 import chip_smoke as cs
 from multimeditron_torch import _build
 from multimeditron_torch.ops import flash_attention as fl
+from multimeditron_torch.ops import grouped_experts as ge
 from multimeditron_torch.ops import paged_attention as paged
 from multimeditron_torch.ops import vit_int8_fused as v8
 from multimeditron_torch.ops import wo_matmul as wo
@@ -70,6 +77,8 @@ OLDER_SIGNATURES = {
     "mmt_ring_decode_attention": (_P,) * 10 + (_I,) * 9 + (_F, _I, _I, _P),
     "mmt_paged_attention": (_P,) * 7 + (_I,) * 7 + (_F, _I, _I, _P),
 }
+# K4 with the in-launch merge, before its window argument
+NO_WINDOW_K4 = (_P,) * 11 + (_I,) * 10 + (_F, _I, _I, _P)
 
 
 def load_tree(d: str):
@@ -78,9 +87,12 @@ def load_tree(d: str):
     out = _build.library_path()
     if not out.exists():
         _build._compile(out)
-    missing = {n: o for n, o in OLDER_ENTRIES.items() if not hasattr(ctypes.CDLL(str(out)), n)}
+    probe = ctypes.CDLL(str(out))
+    missing = {n: o for n, o in OLDER_ENTRIES.items() if not hasattr(probe, n)}
+    # entries newer than the tree (the grouped-expert kernel's)
+    absent = [n for n in _build.SIGNATURES if n not in OLDER_ENTRIES and not hasattr(probe, n)]
     signatures = dict(_build.SIGNATURES)
-    for name in missing:
+    for name in list(missing) + absent:
         del _build.SIGNATURES[name]
     try:
         lib = _build.library()
@@ -97,6 +109,10 @@ def load_tree(d: str):
     for name, argtypes in OLDER_SIGNATURES.items():
         if lib.older_k9 if name == "mmt_wo_matmul" else lib.older_k4:
             getattr(lib, name).argtypes = list(argtypes)
+    lib.k4_window = "int window" in (tree / "ring_decode.cu").read_text()
+    if not lib.older_k4 and not lib.k4_window:
+        lib.mmt_ring_decode_attention.argtypes = list(NO_WINDOW_K4)
+    lib.has_experts = hasattr(lib, "mmt_grouped_experts")
     return lib
 
 
@@ -125,11 +141,25 @@ def wo_matmul(x, w, ws):
     return out
 
 
-def ring_decode(q, kp, vp, kr, vr, table, plen, lens, layer):
+def ring_decode(q, kp, vp, kr, vr, table, plen, lens, layer, window=0):
     """K4 on the current tree, through the entry that tree has."""
     lib = _build.library()
+    if not lib.older_k4 and lib.k4_window:
+        return paged.ring_decode_attention(q, kp, vp, kr, vr, table, plen, lens, layer,
+                                           window=window)
+    if window:
+        raise ValueError("this tree's K4 has no window")
     if not lib.older_k4:
-        return paged.ring_decode_attention(q, kp, vp, kr, vr, table, plen, lens, layer)
+        (B, H, D), (L, Hkv, n_pages, P, _), pm, T = q.shape, kp.shape, table.shape[1], kr.shape[3]
+        work, counters, max_splits = paged._decode_scratch(lib, q, B, Hkv, H // Hkv, D,
+                                                           pm * P + T)
+        o = torch.empty_like(q)
+        _build.check("ring_decode_attention", lib.mmt_ring_decode_attention(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kr.data_ptr(), vr.data_ptr(),
+            table.data_ptr(), plen.data_ptr(), lens.data_ptr(), work.data_ptr(),
+            counters.data_ptr(), o.data_ptr(), L, B, H, Hkv, D, n_pages, P, pm, T, layer,
+            D ** -0.5, max_splits, 1, _build.stream_handle(q.device)))
+        return o
     (B, H, D), (_, Hkv, n_pages, P, _), pm, T = q.shape, kp.shape, table.shape[1], kr.shape[3]
     n_splits = -(-(pm * P + T) // lib.mmt_ring_decode_split_keys())
     partial = torch.empty(B * Hkv * n_splits * (H // Hkv) * (D + 2), dtype=torch.float32,
@@ -191,10 +221,40 @@ def decode_runs(gen) -> dict:
 
     serving = cs.k8_case(torch.bfloat16, gen, [513, 530, 0, 576, 541, 560, 527, 550], 5)
     long = cs.k8_case(torch.bfloat16, gen, [4096, 3585, 3900, 4000, 3700, 4095, 3800, 3990], 32)
-    return {"ring_decode K4 ragged": lambda: ring_decode(*args, 1),
-            "ring_decode K4 phase 5": p5_run,
-            "paged K8 serving": lambda: paged_decode(*serving),
-            "paged K8 4096": lambda: paged_decode(*long)}
+    at3000 = cs.mellum_k4_case(gen, [3000] * 128)
+    mix = cs.mellum_k4_case(gen, cs.grpo_long_lengths())
+    out = {"ring_decode K4 ragged": lambda: ring_decode(*args, 1),
+           "ring_decode K4 phase 5": p5_run,
+           "paged K8 serving": lambda: paged_decode(*serving),
+           "paged K8 4096": lambda: paged_decode(*long),
+           "ring_decode K4 mellum 3000 keys": lambda: ring_decode(*at3000, 0),
+           "ring_decode K4 mellum 3000 keys window 1024":
+               lambda: ring_decode(*at3000, 0, window=1024),
+           "ring_decode K4 mellum cell mix window 1024":
+               lambda: ring_decode(*mix, 0, window=1024)}
+    for name in ("ring_decode K4 mellum 3000 keys window 1024",
+                 "ring_decode K4 mellum cell mix window 1024"):
+        out[name].needs = "k4_window"
+    return out
+
+
+def expert_runs(gen) -> dict:
+    """The grouped-expert kernel at Mellum2-12B's widths: a 128-slot decode
+    step (1,024 assignments) and a 1,024-token prefill chunk, routed by a
+    softmax top-8 of random router scores."""
+    E, F_, D, k = 64, 896, 2304, 8
+    w = [torch.randn(*shape, generator=gen, device="cuda").mul_(fan ** -0.5).bfloat16()
+         for shape, fan in (((E, F_, D), D), ((E, F_, D), D), ((E, D, F_), F_))]
+    out = {}
+    for name, N in (("decode 128 slots", 128), ("prefill 1024 tokens", 1024)):
+        x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
+        scores = torch.softmax(torch.randn(N, E, generator=gen, device="cuda"), dim=-1)
+        top, ids = torch.topk(scores, k, dim=-1)
+        top = top / top.sum(dim=-1, keepdim=True)
+        fn = (lambda x=x, ids=ids, top=top: ge.grouped_experts(x, ids, top, *w))
+        fn.needs = "has_experts"
+        out[f"grouped_experts {name}"] = fn
+    return out
 
 
 def graph_ms(fn, n: int = 20, reps: int = 5):
@@ -264,7 +324,7 @@ def int8_runs(B: int, tag: str = "") -> dict:
 
 # runs also timed by CUDA-graph replay (their wrappers allocate from the
 # caching allocator and launch, nothing else)
-GRAPHED = ("wo_matmul", "ring_decode", "paged")
+GRAPHED = ("wo_matmul", "ring_decode", "paged", "grouped_experts")
 
 
 def main(dirs, only=()) -> int:
@@ -285,6 +345,7 @@ def main(dirs, only=()) -> int:
         ws = (0.5 + torch.rand(N, generator=gen, device="cuda")) * (0.5 / (73 * K ** 0.5))
         runs[f"wo_matmul {name} M={M}"] = lambda x=x, w=w, ws=ws: wo_matmul(x, w, ws)
     runs.update(decode_runs(gen))
+    runs.update(expert_runs(gen))
 
     if only:
         runs = {name: fn for name, fn in runs.items() if name.startswith(only)}
@@ -298,8 +359,11 @@ def main(dirs, only=()) -> int:
                    for x, y in zip(a, b))
 
     first = None
+    all_runs = runs
     for d in list(dirs) + list(reversed(dirs)):
         _build._lib = libs[d]
+        runs = {name: fn for name, fn in all_runs.items()
+                if getattr(libs[d], getattr(fn, "needs", ""), True)}
         times = {name: cs.device_ms(fn) for name, fn in runs.items()}
         times = {name: None if t is None else round(t, 4) for name, t in times.items()}
         graphs = {name: round(graph_ms(fn), 4) for name, fn in runs.items()
@@ -308,7 +372,8 @@ def main(dirs, only=()) -> int:
             getattr(fn, "reset", lambda: None)()
         outs = {name: fn() for name, fn in runs.items()}
         first = first or outs
-        same = {name: compare(outs[name], first[name]) for name in runs}
+        same = {name: compare(outs[name], first[name]) if name in first else "first here"
+                for name in runs}
         print(f"{d}: device ms {times}; graph-replay ms {graphs}; outputs against {dirs[0]}: "
               f"{same}", flush=True)
     return 0

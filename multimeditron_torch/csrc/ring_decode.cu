@@ -9,7 +9,10 @@
 //     `layer_index` of the pool (L, Hkv, n_pages, P, D);
 //   - its in-chunk ring rows r <= lengths[b] - pages_len[b] of layer
 //     `layer_index` of the ring (L, B, Hkv, T, D) (row lengths-pages_len holds
-//     this step's own token).
+//     this step's own token);
+//   - with a window W > 0 (a sliding-window layer), only the keys at positions
+//     > lengths[b] - W: the key at position i is page row i (i < pages_len)
+//     or ring row i - pages_len.
 // K8 replaces `_paged_kernel` of the same file (reached through
 // `paged_attention_pallas`): slot b's query attends over positions
 // < lengths[b] of ONE layer's pool (Hkv, n_pages, P, D) through its page
@@ -65,6 +68,12 @@
 //   head)'s counter (an atomic), and the last split to arrive merges the
 //   records in split order, normalises, writes the output and resets the
 //   counter to 0. The same inputs give the same bits on every run.
+// - A window. A slot's keys start at its window's first key rounded down to
+//   a 64-key tile (of the pages, or of the ring where the window starts
+//   there): whole pages before it are never loaded, and no split or item is
+//   planned for them. The keys of that first tile before the window are
+//   masked out of the scores and their V rows zeroed in shared memory. With
+//   no window the plan, the tiles and the arithmetic are K4's as before.
 // Every page index read from the table is clamped into the pool, and the
 // valid counts are clamped to the table and the ring: inactive slots carry
 // stale tables and lengths, and their output is garbage by contract but
@@ -159,6 +168,7 @@ struct Args {
   int* counters;
   void* o;
   int B, H, Hkv, D, n_pages, P, pm, T_ring, layer, max_splits;
+  int window;   // keys a query sees in a sliding-window layer; 0: all (K8: always 0)
   float scale;  // sm_scale * log2 e
 };
 
@@ -166,15 +176,25 @@ struct Maps {
   CUtensorMap k_pages, v_pages, k_ring, v_ring;
 };
 
-// Slot b's valid keys: pages, then (K4) ring rows.
+// Slot b's valid keys: pages, then (K4) ring rows; `first` the first key in
+// its window and `start` the first key read: `first` rounded down to a
+// 64-key tile of the pages, or of the ring where the window starts there
+// (both 0 with no window).
 template <bool kRing>
-__device__ __forceinline__ void slot_keys(const Args& a, int b, int& n_page, int& n_keys) {
+__device__ __forceinline__ void slot_keys(const Args& a, int b, int& n_page, int& n_keys,
+                                          int& first, int& start) {
   n_page = mmt::clamp_int(a.pages_len[b], 0, a.pm * a.P);
   const int n_ring =
       kRing ? mmt::clamp_int(static_cast<long long>(a.lengths[b]) - a.pages_len[b] + 1, 0,
                              a.T_ring)
             : 0;
   n_keys = n_page + n_ring;
+  first = start = 0;
+  if (kRing && a.window > 0) {
+    first = mmt::clamp_int(static_cast<long long>(a.lengths[b]) + 1 - a.window, 0, n_keys);
+    start = first < n_page ? first / kTile * kTile
+                           : n_page + (first - n_page) / kTile * kTile;
+  }
 }
 
 // Warp 0 brings keys [k0, k0 + rows) of (slot b, kv head h), all pages or
@@ -271,12 +291,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void bf16_tile(Bf16State& st, uint32_t ks, uint32_t vs, int rows,
-                                          int D, float scale, int warp, int lane) {
+// Keys lo <= r < rows of the tile are valid (lo > 0 only in a window's
+// first tile).
+__device__ __forceinline__ void bf16_tile(Bf16State& st, uint32_t ks, uint32_t vs, int lo,
+                                          int rows, int D, float scale, int warp, int lane) {
   using T = __nv_bfloat16;
   const int t = lane % 4;
   const int key0 = 16 * warp;
-  if (key0 >= rows) return;  // no valid key of this warp in the tile
+  if (key0 >= rows || key0 + 16 <= lo) return;  // no valid key of this warp in the tile
   float c[2][4] = {};
   // B fragments of S^T = q K^T: keys key0.. as n (two 8-key n-tiles), d as k
   const int kr = key0 + (lane & 7) + ((lane >> 4) << 3), kd = ((lane >> 3) & 1) * 8;
@@ -295,7 +317,8 @@ __device__ __forceinline__ void bf16_tile(Bf16State& st, uint32_t ks, uint32_t v
   for (int n = 0; n < 2; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const bool valid = key0 + 8 * n + 2 * t + (e & 1) < rows;
+      const int key = key0 + 8 * n + 2 * t + (e & 1);
+      const bool valid = key >= lo && key < rows;
       c[n][e] = valid ? c[n][e] * scale : -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], c[n][e]);
     }
@@ -403,14 +426,15 @@ __device__ __forceinline__ void bf16_end(Bf16State& st, float* rec_m, float* rec
 // float32: a tile on the CUDA cores, every warp on every key
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void f32_tile(const unsigned char* ks, const unsigned char* vs,
-                                         int rows, int group, int D, float scale,
+                                         int lo, int rows, int group, int D, float scale,
                                          const float* qs, float* acc, float* sc, float* m_s,
                                          float* l_s, float* alpha_s, int warp, int lane) {
   auto at = [](const unsigned char* tile, int r, int d) {
     return *reinterpret_cast<const float*>(tile + swz<float>(r, d));
   };
+  const int j0 = lo > 0 ? lo : 0;  // keys before the window are neither scored nor summed
   // scores: one warp per key row, lanes split the head dim
-  for (int j = warp; j < rows; j += kWarps) {
+  for (int j = j0 + warp; j < rows; j += kWarps) {
     float part[kMaxGroup];
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) part[g] = 0.f;
@@ -432,11 +456,11 @@ __device__ __forceinline__ void f32_tile(const unsigned char* ks, const unsigned
   // online softmax: one warp per query head
   for (int g = warp; g < group; g += kWarps) {
     float mx = -INFINITY;
-    for (int j = lane; j < rows; j += mmt::kWarpSize) mx = fmaxf(mx, sc[g * kTile + j]);
+    for (int j = j0 + lane; j < rows; j += mmt::kWarpSize) mx = fmaxf(mx, sc[g * kTile + j]);
     mx = mmt::warp_max(mx);
     const float m_new = fmaxf(m_s[g], mx);
     float sum = 0.f;
-    for (int j = lane; j < rows; j += mmt::kWarpSize) {
+    for (int j = j0 + lane; j < rows; j += mmt::kWarpSize) {
       const float p = exp2f(sc[g * kTile + j] - m_new);
       sc[g * kTile + j] = p;
       sum += p;
@@ -454,7 +478,7 @@ __device__ __forceinline__ void f32_tile(const unsigned char* ks, const unsigned
     float o[kMaxGroup];
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) o[g] = g < group ? acc[g * D + d] * alpha_s[g] : 0.f;
-    for (int j = 0; j < rows; ++j) {
+    for (int j = j0; j < rows; ++j) {
       const float vd = at(vs, j, d);
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
@@ -498,9 +522,9 @@ decode_kernel(const __grid_constant__ Maps maps, const Args a) {
     mmt::hopper::fence_barrier_init();
   }
   for (int b = threadIdx.x; b < a.B; b += kThreads) {
-    int n_page, n;
-    slot_keys<kRing>(a, b, n_page, n);
-    n_keys_s[b] = n;
+    int n_page, n, first, start;
+    slot_keys<kRing>(a, b, n_page, n, first, start);
+    n_keys_s[b] = n - start;  // the keys read
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -537,9 +561,9 @@ decode_kernel(const __grid_constant__ Maps maps, const Args a) {
     const int n = n_keys_s[b];
     const int splits_b = n > 0 ? (n + L - 1) / L : 1;
     const int r = item - first_item[b], h = r / splits_b, split = r % splits_b;
-    int n_page, n_keys;
-    slot_keys<kRing>(a, b, n_page, n_keys);
-    const int k0 = split * L, k1 = min(k0 + L, n);
+    int n_page, n_keys, first, start;
+    slot_keys<kRing>(a, b, n_page, n_keys, first, start);
+    const int k0 = start + split * L, k1 = min(k0 + L, n_keys);
     const int n_tiles = k1 > k0 ? item_tiles(k0, k1, n_page) : 0;
     const T* q = static_cast<const T*>(a.q) + (size_t(b) * a.H + size_t(h) * group) * D;
 
@@ -576,20 +600,23 @@ decode_kernel(const __grid_constant__ Maps maps, const Args a) {
       unsigned char* vs = ks + lay.tile;
       mmt::hopper::mbar_wait(&full[s], (consumed / kStages) & 1);
       if constexpr (kF32) {
-        f32_tile(ks, vs, rows, group, D, a.scale, qs, rec_acc, sc, rec_m, rec_l, rec_alpha, warp,
-                 lane);
+        f32_tile(ks, vs, first - t0, rows, group, D, a.scale, qs, rec_acc, sc, rec_m, rec_l,
+                 rec_alpha, warp, lane);
       } else {
-        if (rows < kTile) {  // zero the V rows past the valid keys (0 * NaN = NaN)
-          const int row_bytes = lay.boxes * kBoxBytes;
-          for (int e = threadIdx.x; e < (kTile - rows) * row_bytes / 16; e += kThreads) {
-            const int rr = rows + e / (row_bytes / 16), cc = e % (row_bytes / 16);
+        const int lo = first - t0;
+        if (rows < kTile || lo > 0) {  // zero the V rows outside the valid keys (0 * NaN = NaN)
+          const int row_bytes = lay.boxes * kBoxBytes, before = lo > 0 ? lo : 0;
+          const int n_zero = before + kTile - rows;
+          for (int e = threadIdx.x; e < n_zero * row_bytes / 16; e += kThreads) {
+            const int z = e / (row_bytes / 16), cc = e % (row_bytes / 16);
+            const int rr = z < before ? z : rows + z - before;
             *reinterpret_cast<uint4*>(vs + (cc / 8) * (kTile * kBoxBytes) + rr * kBoxBytes +
                                       (cc % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
           }
           fence_proxy_async();
           __syncthreads();
         }
-        bf16_tile(st, smem_u32(ks), smem_u32(vs), rows, D, a.scale, warp, lane);
+        bf16_tile(st, smem_u32(ks), smem_u32(vs), lo, rows, D, a.scale, warp, lane);
       }
       __syncthreads();  // every warp is done with stage s
       if (warp == 0 && i + kStages < n_tiles) {
@@ -742,7 +769,9 @@ bool bad_shape(int B, int H, int Hkv, int D, int P, int max_splits, int dtype) {
 
 }  // namespace
 
-// The pool is (L, Hkv, n_pages, P, D) and the ring (L, B, Hkv, T, D); `work`
+// The pool is (L, Hkv, n_pages, P, D) and the ring (L, B, Hkv, T, D); a
+// `window` > 0 limits each query to the keys at positions > lengths - window;
+// `work`
 // is float32 scratch of B * Hkv * max_splits * (H / Hkv) * (D + 2) values
 // with max_splits >= ceil((pages_max * P + T) / 64); `counters` B * Hkv
 // int32 zeros, left zero. bf16 takes D % 16 == 0, float32 D % 4 == 0,
@@ -754,14 +783,14 @@ extern "C" int mmt_ring_decode_attention(const void* q, const void* k_pages,
                                          void* work, void* counters, void* o, int L, int B,
                                          int H, int Hkv, int D, int n_pages, int P, int pm,
                                          int T_ring, int layer, float scale, int max_splits,
-                                         int dtype, void* stream) {
+                                         int window, int dtype, void* stream) {
   if (bad_shape(B, H, Hkv, D, P, max_splits, dtype) || L < 1 || layer < 0 || layer >= L ||
       T_ring < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, static_cast<const int*>(page_table), static_cast<const int*>(pages_len),
                static_cast<const int*>(lengths), static_cast<float*>(work),
                static_cast<int*>(counters), o, B, H, Hkv, D, n_pages, P, pm, T_ring, layer,
-               max_splits, scale * kLog2e};
+               max_splits, window > 0 ? window : 0, scale * kLog2e};
   MMT_DISPATCH_DTYPE(dtype, return launch<scalar_t, true>(k_pages, v_pages, k_ring, v_ring, L, a,
                                                           static_cast<cudaStream_t>(stream)));
 }
@@ -777,7 +806,7 @@ extern "C" int mmt_paged_attention(const void* q, const void* k_pages, const voi
   const Args a{q, static_cast<const int*>(page_table), static_cast<const int*>(lengths),
                static_cast<const int*>(lengths), static_cast<float*>(work),
                static_cast<int*>(counters), o, B, H, Hkv, D, n_pages, P, pm, 0, 0, max_splits,
-               scale * kLog2e};
+               0, scale * kLog2e};
   MMT_DISPATCH_DTYPE(dtype, return launch<scalar_t, false>(k_pages, v_pages, nullptr, nullptr, 1,
                                                            a, static_cast<cudaStream_t>(stream)));
 }

@@ -67,10 +67,14 @@ class LayerNorm(nn.Module):
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
                      scaling: Optional[dict] = None,
                      device: Optional[torch.device] = None) -> torch.Tensor:
-    """Inverse frequencies (float32), with optional HF llama3 scaling."""
+    """Inverse frequencies (float32), with optional HF llama3 or YaRN
+    scaling (YaRN's attention factor is :func:`rope_attention_factor`)."""
     inv_freq = 1.0 / (theta ** (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
-    if scaling and scaling.get("rope_type", scaling.get("type")) == "llama3":
+    kind = scaling.get("rope_type", scaling.get("type")) if scaling else None
+    if kind == "yarn":
+        return yarn_frequencies(head_dim, theta, scaling, device)
+    if kind == "llama3":
         factor = scaling["factor"]
         low_factor = scaling["low_freq_factor"]
         high_factor = scaling["high_freq_factor"]
@@ -87,18 +91,63 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
     return inv_freq
 
 
-def _rotate(block: torch.Tensor, pos: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+def yarn_frequencies(head_dim: int, theta: float, scaling: dict,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """HF's YaRN inverse frequencies (``_compute_yarn_parameters``): each
+    dimension pair blends the interpolated frequency (divided by ``factor``)
+    and the original one by a linear ramp between the correction dims of
+    ``beta_fast`` and ``beta_slow`` rotations over the original context,
+    rounded outwards unless ``truncate`` is false."""
+    factor = scaling["factor"]
+    old_len = scaling["original_max_position_embeddings"]
+    beta_fast, beta_slow = scaling.get("beta_fast", 32), scaling.get("beta_slow", 1)
+
+    def correction_dim(rotations: float) -> float:
+        return (head_dim * math.log(old_len / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, head_dim - 1)
+    if low == high:
+        high += 0.001
+    pos_freqs = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                          / head_dim)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extrapolation = 1 - ramp
+    return (1.0 / (factor * pos_freqs)) * (1 - extrapolation) + (1.0 / pos_freqs) * extrapolation
+
+
+def rope_attention_factor(scaling: Optional[dict]) -> float:
+    """The factor on cos and sin: YaRN's ``attention_factor`` (when absent,
+    0.1 ln(factor) + 1); 1 for every other rule."""
+    kind = scaling.get("rope_type", scaling.get("type")) if scaling else None
+    if kind != "yarn":
+        return 1.0
+    if scaling.get("attention_factor") is not None:
+        return float(scaling["attention_factor"])
+    factor = scaling["factor"]
+    return 0.1 * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def _rotate(block: torch.Tensor, pos: torch.Tensor, freqs: torch.Tensor,
+            scale: float = 1.0) -> torch.Tensor:
     # block: (B, H, S, d) float32; pos: (B, S); freqs: (d/2,)
     angles = pos.float()[:, None, :, None] * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     half = block.shape[-1] // 2
     x1, x2 = block[..., :half], block[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, position_ids: torch.Tensor,
-               inv_freq: torch.Tensor) -> torch.Tensor:
-    """Rotate (B, H, S, D) by positions (B, S) — HF half-split convention.
+               inv_freq: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Rotate (B, H, S, D) by positions (B, S) — HF half-split convention;
+    ``scale`` multiplies cos and sin (YaRN's attention factor).
 
     With (B, S, 2) position ids the head dim splits in half and each half
     rotates with its own position channel (2-D image patch positions).
@@ -106,13 +155,13 @@ def apply_rope(x: torch.Tensor, position_ids: torch.Tensor,
     D = x.shape[-1]
     x32 = x.float()
     if position_ids.dim() == 2:
-        out = _rotate(x32, position_ids, inv_freq)
+        out = _rotate(x32, position_ids, inv_freq, scale)
     elif position_ids.dim() == 3 and position_ids.shape[-1] == 2:
         half = D // 2
         freqs_half = inv_freq[: half // 2] * 2.0  # keep wavelength coverage
         out = torch.cat([
-            _rotate(x32[..., :half], position_ids[..., 0], freqs_half),
-            _rotate(x32[..., half:], position_ids[..., 1], freqs_half),
+            _rotate(x32[..., :half], position_ids[..., 0], freqs_half, scale),
+            _rotate(x32[..., half:], position_ids[..., 1], freqs_half, scale),
         ], dim=-1)
     else:
         raise ValueError(

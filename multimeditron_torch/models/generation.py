@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from multimeditron_torch.models.llama import init_kv_cache
+from multimeditron_torch.models.llama import init_kv_cache, refuse_windows_or_experts
 from multimeditron_torch.models.multimodal import MultimodalModel
 from multimeditron_torch.serve import prng
 
@@ -80,6 +80,8 @@ def generate(
     (numpy arrays or tensors; ``mm_inputs`` and ``position_ids`` optional).
     Returns (B, max_new_tokens) int32 on the model's device; positions after
     a sample's EOS hold the EOS id."""
+    refuse_windows_or_experts(model.config.llm, "generate() (its decode step over a "
+                              "contiguous cache is kernel K1, which has no window)")
     key = prng.prng_key(0) if key is None else key
     cfg, llm = model.config.llm, model.llm
     eos = model.config.eos_token_idx

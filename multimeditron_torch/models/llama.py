@@ -8,8 +8,14 @@ cache, chunked prefill and the slab engine's verify block) or a decode step
 (``generate``, the slab engine; kernel K1 on the card); and the paged steps
 against a page pool + per-chunk ring: a single-token decode step (kernel K4)
 and the speculative verify block of S > 1 tokens (kernel K6).
-Supports GQA, RoPE with HF llama3 scaling and 2-D position ids, optional
-QK-norm, gated and plain MLPs (activation in float32) and tied embeddings.
+Supports GQA, RoPE with HF llama3 or YaRN scaling and 2-D position ids,
+optional QK-norm, gated and plain MLPs (activation in float32) and tied
+embeddings. Layers may differ (Mellum2): each takes its kind from
+``layer_types`` (full or sliding-window attention, with the window applied
+in the paged decode step by K4 and in the prefill's plain attention) and its
+own RoPE table from ``rope_parameters``; a decoder with ``num_experts``
+replaces every MLP with a routed mixture of SiLU-gated experts
+(``models/moe.py``).
 
 Projections are ``nn.Linear`` or, in a decoder quantised by
 ``models/llama_quant.py``, :class:`Int8Linear` (W8A16 through kernel K9),
@@ -19,7 +25,10 @@ activation once per row and feeds every int8 projection that reads it when
 a call has at least that many (padded) rows.
 
 Not ported yet, and refused with ``NotImplementedError``: sequence, ring and
-pipeline parallelism.
+pipeline parallelism; with sliding windows, a decode step over a
+contiguous cache (slab decode, ``generate``: kernel K1 has no window), the
+speculative verify block (K6) and the no-cache forward on the card
+(training: K1 and K2 have no window).
 """
 
 from __future__ import annotations
@@ -38,14 +47,24 @@ from multimeditron_torch.models.common import (
     RMSNorm,
     apply_rope,
     init_dense_,
+    rope_attention_factor,
     rope_frequencies,
     xielu,
 )
+from multimeditron_torch.models.moe import MoE
 from multimeditron_torch.ops.attention import attention
 from multimeditron_torch.ops.paged_attention import ring_decode_attention, ring_verify_attention
 from multimeditron_torch.ops.wo_matmul import quantize_rows, w8a8_matmul, wo_matmul
 
 Cache = Dict[str, torch.Tensor]
+Rope = Tuple[torch.Tensor, float]  # inverse frequencies, factor on cos and sin
+
+MODEL_TYPES = ("llama", "qwen3", "apertus", "mellum")
+LAYER_TYPES = ("full_attention", "sliding_attention")
+ROPE_TYPES = ("default", "llama3", "yarn")
+# LlamaConfig's fields of layers that differ (Mellum2), none in the JAX package
+LAYERED_FIELDS = ("layer_types", "sliding_window", "rope_parameters", "num_experts",
+                  "num_experts_per_tok", "moe_intermediate_size", "norm_topk_prob")
 
 # Plain (gateless) MLP activations, named as in ``jax.nn`` (whose ``gelu``
 # defaults to the tanh approximation).
@@ -80,16 +99,51 @@ class LlamaConfig:
     pipeline_parallel: int = 1
     pipeline_microbatches: Optional[int] = None
     w8a8_min_rows: int = 0
+    # layers that differ (Mellum2): each layer's kind and the window of the
+    # sliding ones; RoPE per kind ({kind: HF rope parameters}); routed experts
+    layer_types: Optional[Tuple[str, ...]] = None
+    sliding_window: Optional[int] = None
+    rope_parameters: Optional[dict] = None
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
     dtype: torch.dtype = torch.bfloat16
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    def layer_type(self, i: int) -> str:
+        return self.layer_types[i] if self.layer_types else "full_attention"
+
+    def layer_window(self, i: int) -> int:
+        """Keys a query of layer ``i`` sees (its own included); 0: all."""
+        if self.layer_type(i) == "sliding_attention":
+            return int(self.sliding_window)
+        return 0
+
+    @property
+    def windowed(self) -> bool:
+        return any(self.layer_window(i) for i in range(self.num_layers))
+
+    def layer_rope(self, i: int) -> Tuple[float, Optional[dict]]:
+        """(theta, scaling) of layer ``i``'s RoPE: its kind's entry of
+        ``rope_parameters``, else the decoder-wide ``rope_theta`` and
+        ``rope_scaling``."""
+        if not self.rope_parameters:
+            return self.rope_theta, self.rope_scaling
+        p = self.rope_parameters[self.layer_type(i)]
+        return float(p["rope_theta"]), (None if p.get("rope_type") == "default" else p)
+
     @staticmethod
     def from_hf_dict(d: dict) -> "LlamaConfig":
-        """Build from an HF ``config.json`` dict (llama/qwen3/apertus)."""
+        """Build from an HF ``config.json`` dict (llama/qwen3/apertus/mellum).
+        A ``model_type`` outside these, or a key whose value this decoder
+        cannot honour, raises ``NotImplementedError``."""
         mt = d.get("model_type", "llama")
+        _refuse_hf(d, mt)
+        moe = mt == "mellum"
         return LlamaConfig(
             vocab_size=d["vocab_size"],
             hidden_size=d["hidden_size"],
@@ -107,8 +161,68 @@ class LlamaConfig:
             attention_bias=d.get("attention_bias", False),
             mlp_gate=mt != "apertus",
             hidden_act=d.get("hidden_act", "silu"),
-            hf_arch=mt if mt in ("llama", "qwen3", "apertus") else "llama",
+            hf_arch=mt,
+            layer_types=tuple(d["layer_types"]) if d.get("layer_types") else None,
+            sliding_window=d.get("sliding_window") if d.get("layer_types") else None,
+            rope_parameters=d.get("rope_parameters"),
+            num_experts=d["num_experts"] if moe else 0,
+            num_experts_per_tok=d["num_experts_per_tok"] if moe else 0,
+            moe_intermediate_size=d["moe_intermediate_size"] if moe else 0,
+            norm_topk_prob=bool(d.get("norm_topk_prob", True)),
         )
+
+
+def _refuse_hf(d: dict, mt: str) -> None:
+    """What :meth:`LlamaConfig.from_hf_dict` cannot build, named."""
+    bad = []
+    if mt not in MODEL_TYPES:
+        bad.append(f"model_type {mt!r} (known: {', '.join(MODEL_TYPES)})")
+    for key in ("attention_bias", "mlp_bias"):
+        if d.get(key):
+            bad.append(f"{key}: true")
+    if d.get("partial_rotary_factor", 1.0) != 1.0:
+        bad.append("partial_rotary_factor != 1")
+    for key in ("shared_expert_intermediate_size", "n_shared_experts", "num_shared_experts"):
+        if d.get(key):
+            bad.append(f"{key} (shared experts)")
+    if d.get("scoring_func", "softmax") != "softmax":
+        bad.append(f"scoring_func {d['scoring_func']!r} (the router is a softmax)")
+    ropes = list((d.get("rope_parameters") or {}).values())
+    ropes += [d["rope_scaling"]] if d.get("rope_scaling") else []
+    for r in ropes:
+        kind = r.get("rope_type", r.get("type", "default"))
+        if kind not in ROPE_TYPES:
+            bad.append(f"rope_type {kind!r} (known: {', '.join(ROPE_TYPES)})")
+    if mt == "mellum":
+        kinds = d.get("layer_types") or []
+        if len(kinds) != d["num_hidden_layers"] or set(kinds) - set(LAYER_TYPES):
+            bad.append(f"layer_types (one of {LAYER_TYPES} a layer)")
+        elif not set(kinds) <= set(d.get("rope_parameters") or {}):
+            bad.append("rope_parameters without an entry for each layer type")
+        if "sliding_attention" in kinds and not (d.get("use_sliding_window", True)
+                                                 and (d.get("sliding_window") or 0) > 0):
+            bad.append("sliding layers without a sliding_window")
+        if set(d.get("mlp_layer_types") or ["sparse"]) != {"sparse"}:
+            bad.append("mlp_layer_types other than all 'sparse' (dense layers among experts)")
+        if not 0 < d.get("num_experts_per_tok", 0) <= d.get("num_experts", 0):
+            bad.append("num_experts / num_experts_per_tok")
+    else:
+        if d.get("use_sliding_window"):
+            bad.append("use_sliding_window: true")
+        for key in ("layer_types", "rope_parameters", "num_experts"):
+            if d.get(key):
+                bad.append(f"{key} (model_type {mt!r} has no such layers)")
+    if bad:
+        raise NotImplementedError("LlamaConfig.from_hf_dict cannot honour: " + "; ".join(bad))
+
+
+def refuse_windows_or_experts(cfg: LlamaConfig, what: str) -> None:
+    """``NotImplementedError`` for a path that a sliding-window or expert
+    decoder cannot take yet; ``what`` names the path and what it lacks."""
+    if cfg.windowed or cfg.num_experts:
+        raise NotImplementedError(
+            f"{what} is not written for a decoder with sliding windows or experts "
+            f"(model_type {cfg.hf_arch!r}); serve it through ServingEngine's paged path")
 
 
 def _refuse_unported(cfg: LlamaConfig) -> None:
@@ -221,23 +335,27 @@ def _maybe_quantize_act(h: torch.Tensor, probe: nn.Module, min_rows: int):
 
 
 class LlamaLayer(nn.Module):
-    """One decoder layer (the JAX ``_layer``)."""
+    """One decoder layer (the JAX ``_layer``); layer ``index`` of its
+    decoder, which sets its window (``cfg.layer_window``)."""
 
-    def __init__(self, cfg: LlamaConfig, *, device=None):
+    def __init__(self, cfg: LlamaConfig, *, device=None, index: int = 0):
         super().__init__()
         D, F_, Dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
         H, Hkv = cfg.num_heads, cfg.num_kv_heads
         kw = dict(device=device, dtype=cfg.dtype)
         self.cfg = cfg
+        self.window = cfg.layer_window(index)
         self.input_norm = RMSNorm(D, cfg.rms_norm_eps, **kw)
         self.q_proj = nn.Linear(D, H * Dh, bias=False, **kw)
         self.k_proj = nn.Linear(D, Hkv * Dh, bias=False, **kw)
         self.v_proj = nn.Linear(D, Hkv * Dh, bias=False, **kw)
         self.o_proj = nn.Linear(H * Dh, D, bias=False, **kw)
         self.post_attn_norm = RMSNorm(D, cfg.rms_norm_eps, **kw)
-        self.up_proj = nn.Linear(D, F_, bias=False, **kw)
-        self.down_proj = nn.Linear(F_, D, bias=False, **kw)
-        self.gate_proj = nn.Linear(D, F_, bias=False, **kw) if cfg.mlp_gate else None
+        self.moe = MoE(cfg, device=device) if cfg.num_experts else None
+        dense = self.moe is None
+        self.up_proj = nn.Linear(D, F_, bias=False, **kw) if dense else None
+        self.down_proj = nn.Linear(F_, D, bias=False, **kw) if dense else None
+        self.gate_proj = nn.Linear(D, F_, bias=False, **kw) if dense and cfg.mlp_gate else None
         if cfg.use_qk_norm:
             self.q_norm = RMSNorm(Dh, cfg.rms_norm_eps, **kw)
             self.k_norm = RMSNorm(Dh, cfg.rms_norm_eps, **kw)
@@ -267,7 +385,11 @@ class LlamaLayer(nn.Module):
         args = (cache["k"], cache["v"], rk, rv, cache["page_table"], pages_len, lengths,
                 layer_index)
         if S == 1:
-            return ring_decode_attention(q[:, :, 0, :].contiguous(), *args)[:, :, None, :]
+            return ring_decode_attention(q[:, :, 0, :].contiguous(), *args,
+                                         window=self.window)[:, :, None, :]
+        if self.window:
+            raise NotImplementedError("the speculative verify block (kernel K6) over a "
+                                      "sliding-window layer is not written")
         return ring_verify_attention(q.contiguous(), *args)
 
     def _contiguous_step(self, q, k, v, cache: Cache, layer_index: int,
@@ -283,13 +405,19 @@ class LlamaLayer(nn.Module):
         _write_at_lengths(cv, v, lengths)
         kv_mask = torch.arange(max_len, device=q.device)[None, :] < (lengths + S)[:, None]
         if prefill:
-            return attention(q, ck, cv, kv_mask=kv_mask, causal=True, causal_offset=lengths)
+            return attention(q, ck, cv, kv_mask=kv_mask, causal=True, causal_offset=lengths,
+                             window=self.window)
+        if self.window:
+            raise NotImplementedError("a decode step over a contiguous cache (slab decode, "
+                                      "generate: kernel K1) in a sliding-window layer is not "
+                                      "written")
         return attention(q, ck, cv, kv_mask=kv_mask, causal=False)
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
-                attention_mask: torch.Tensor, inv_freq: torch.Tensor,
+                attention_mask: torch.Tensor, rope: Rope,
                 cache: Optional[Cache] = None, layer_index: int = 0,
-                prefill: bool = False, w8a8_min_rows: int = 0) -> torch.Tensor:
+                prefill: bool = False, w8a8_min_rows: int = 0,
+                moe_stats: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -310,11 +438,12 @@ class LlamaLayer(nn.Module):
             q = self.q_norm(q)
             k = self.k_norm(k)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        q = apply_rope(q, position_ids, inv_freq)
-        k = apply_rope(k, position_ids, inv_freq)
+        inv_freq, rope_scale = rope
+        q = apply_rope(q, position_ids, inv_freq, rope_scale)
+        k = apply_rope(k, position_ids, inv_freq, rope_scale)
 
         if cache is None:
-            out = attention(q, k, v, kv_mask=attention_mask, causal=True)
+            out = attention(q, k, v, kv_mask=attention_mask, causal=True, window=self.window)
         elif "page_table" in cache:
             out = self._paged_step(q, k, v, cache, layer_index)
         else:
@@ -323,6 +452,8 @@ class LlamaLayer(nn.Module):
         x = x + _proj(self.o_proj, out, _maybe_quantize_act(out, self.o_proj, gate))
 
         h = self.post_attn_norm(x)
+        if self.moe is not None:
+            return x + self.moe(h, moe_stats, trace=prefill)
         if self.gateup is not None:
             gu = _proj(self.gateup, h, _maybe_quantize_act(h, self.gateup, gate)).float()
             inter = gu.shape[-1] // 2
@@ -351,11 +482,15 @@ class Llama(nn.Module):
         kw = dict(device=device, dtype=cfg.dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(LlamaLayer(cfg, device=device, index=i)
+                                    for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.lm_head = (None if cfg.tie_word_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **kw))
+        # (experts with a token, assignments) summed over the expert layers'
+        # calls, on the device, for the serving engine to read back
+        self.moe_stats = (torch.zeros(2, dtype=torch.int64, device=device)
+                          if cfg.num_experts else None)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -367,11 +502,25 @@ class Llama(nn.Module):
                 module.weight.fill_(1.0)
             elif isinstance(module, nn.Linear):
                 init_dense_(module.weight, module.in_features, generator)
+            elif isinstance(module, MoE):
+                module.init_weights(generator)
         for layer in self.layers:
             if self.cfg.hidden_act == "xielu":
                 # softplus-inverse of the HF defaults (alpha_p=0.8, alpha_n-beta=0.3)
                 layer.xielu_alpha_p.fill_(math.log(math.expm1(0.8)))
                 layer.xielu_alpha_n.fill_(math.log(math.expm1(0.3)))
+
+    def rope_tables(self, device) -> Dict[str, Rope]:
+        """The RoPE table of each kind of layer: the dense decoders have one
+        kind, Mellum2 its full layers (YaRN) and its sliding ones."""
+        cfg, out = self.cfg, {}
+        for i in range(cfg.num_layers):
+            if cfg.layer_type(i) not in out:
+                theta, scaling = cfg.layer_rope(i)
+                out[cfg.layer_type(i)] = (
+                    rope_frequencies(cfg.head_dim_, theta, scaling, device=device),
+                    rope_attention_factor(scaling))
+        return out
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Token embedding (the JAX ``embed_tokens``)."""
@@ -427,16 +576,17 @@ class Llama(nn.Module):
             else:
                 position_ids = torch.cumsum(attention_mask.long(), dim=-1) - 1
                 position_ids = torch.where(attention_mask == 0, 0, position_ids)
-        inv_freq = rope_frequencies(self.cfg.head_dim_, self.cfg.rope_theta,
-                                    self.cfg.rope_scaling, device=dev)
+        ropes = self.rope_tables(dev)
         gate = self.cfg.w8a8_min_rows if w8a8_min_rows is None else w8a8_min_rows
         checkpointed = remat and kv_cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
+            rope = ropes[self.cfg.layer_type(i)]
             if checkpointed:
-                x = checkpoint(layer, x, position_ids, attention_mask, inv_freq, None, i, False,
-                               gate, use_reentrant=False)
+                x = checkpoint(layer, x, position_ids, attention_mask, rope, None, i, False,
+                               gate, self.moe_stats, use_reentrant=False)
             else:
-                x = layer(x, position_ids, attention_mask, inv_freq, kv_cache, i, prefill, gate)
+                x = layer(x, position_ids, attention_mask, rope, kv_cache, i, prefill, gate,
+                          self.moe_stats)
         x = self.final_norm(x)
         new_cache = None
         if kv_cache is not None:

@@ -91,6 +91,8 @@ def quantize_llama(llm: Llama, fuse: bool = True) -> Llama:
     ``quantize_llama_params``); ``llm`` is not changed. Quantised layer by
     layer, so the float32 transient is one projection, not a stack."""
     cfg = llm.cfg
+    if cfg.num_experts:
+        raise NotImplementedError("quantising an expert decoder (int8 experts) is not written")
     q = _skeleton(cfg, llm.embed_tokens, llm.final_norm)
     for qlayer, layer in zip(q.layers, llm.layers):
         for name in _SHARED:

@@ -20,7 +20,12 @@ from multimeditron_torch import default_device
 from multimeditron_torch.modalities import AutoModality
 from multimeditron_torch.modalities.base import BaseModalityConfig
 from multimeditron_torch.models.common import cross_entropy_loss
-from multimeditron_torch.models.llama import Llama, LlamaConfig
+from multimeditron_torch.models.llama import (
+    LAYERED_FIELDS,
+    Llama,
+    LlamaConfig,
+    refuse_windows_or_experts,
+)
 from multimeditron_torch.profiling import tracer
 
 
@@ -35,6 +40,17 @@ class TrainingMode(str, enum.Enum):
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
+
+
+def _llm_dict(llm: LlamaConfig) -> dict:
+    """The decoder's fields, those of layers that differ (windows, experts)
+    only where set: the JAX package's config has none of them."""
+    defaults = {f.name: f.default for f in dataclasses.fields(LlamaConfig)}
+    d = dataclasses.asdict(llm)
+    for name in LAYERED_FIELDS:
+        if d[name] == defaults[name]:
+            del d[name]
+    return d | {"dtype": _dtype_name(llm.dtype)}
 
 
 @dataclasses.dataclass
@@ -54,7 +70,7 @@ class MultimodalConfig:
         """Same format as the JAX ``MultimodalConfig.to_dict``."""
         return {
             "model_type": "multimodal",
-            "llm": dataclasses.asdict(self.llm) | {"dtype": _dtype_name(self.llm.dtype)},
+            "llm": _llm_dict(self.llm),
             "modalities": [m.to_dict() for m in self.modalities],
             "vocab_size": self.vocab_size,
             "pad_token_idx": self.pad_token_idx,
@@ -134,7 +150,10 @@ class MultimodalModel(nn.Module):
     def forward(self, batch: Dict[str, Any],
                 remat: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(logits, loss or None) for a collated batch of tensors, as the JAX
-        ``MultimodalModel.forward``: the loss when ``labels`` are present."""
+        ``MultimodalModel.forward``: the loss when ``labels`` are present.
+        Refused for a decoder with sliding windows or experts."""
+        refuse_windows_or_experts(self.config.llm, "the no-cache forward (training: kernels "
+                                  "K1 and K2 have no window, the expert backward)")
         embeds = self.embed(batch["input_ids"], batch.get("mm_inputs"))
         logits, _ = self.llm(inputs_embeds=embeds, attention_mask=batch.get("attention_mask"),
                              position_ids=batch.get("position_ids"), remat=remat)

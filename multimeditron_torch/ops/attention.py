@@ -16,6 +16,10 @@ Contract (shared with the JAX package):
   kv_mask: optional (B, Skv) — nonzero for valid key/value positions
   causal: lower-triangular masking aligned to the END of the kv sequence
           when Sq != Skv, or to per-sample ``causal_offset`` (B,).
+  window: with ``causal``, a query at position p sees only the keys at
+          positions > p - window (a sliding-window layer); 0: all. The flash
+          kernels take no window: a windowed call on the card needs a
+          per-sample offset (the serving prefill), else it raises.
 Returns (B, H, Sq, D) in q.dtype. Rows with no valid key return zeros.
 """
 
@@ -38,6 +42,7 @@ def attention_plain(
     causal: bool = True,
     sm_scale: Optional[float] = None,
     causal_offset: Optional[Union[int, torch.Tensor]] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Masked softmax attention with float32 scores and accumulation.
 
@@ -62,10 +67,16 @@ def attention_plain(
         k_pos = torch.arange(Skv, device=q.device)
         if isinstance(offset, torch.Tensor) and offset.dim() == 1:
             q_pos = offset.to(q.device)[:, None] + torch.arange(Sq, device=q.device)[None, :]
-            mask = mask & (q_pos[:, :, None] >= k_pos)[:, None, None]
+            seen = q_pos[:, :, None] >= k_pos
+            if window > 0:
+                seen = seen & (q_pos[:, :, None] - k_pos < window)
+            mask = mask & seen[:, None, None]
         else:
             q_pos = torch.arange(Sq, device=q.device) + int(offset)
-            mask = mask & (q_pos[:, None] >= k_pos)
+            seen = q_pos[:, None] >= k_pos
+            if window > 0:
+                seen = seen & (q_pos[:, None] - k_pos < window)
+            mask = mask & seen
     if kv_mask is not None:
         mask = mask & kv_mask.bool()[:, None, None, None, :]
 
@@ -88,14 +99,17 @@ def attention(
     causal: bool = True,
     sm_scale: Optional[float] = None,
     causal_offset: Optional[Union[int, torch.Tensor]] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Entry point the models call; the dispatch rule is in the module
     docstring. The JAX package's 1024-key crossover was measured on a TPU,
     so no length threshold is carried over."""
     per_sample = isinstance(causal_offset, torch.Tensor) and causal_offset.dim() >= 1
     if q.device.type == "cuda" and not per_sample:
+        if window > 0 and causal:
+            raise NotImplementedError("the flash kernels (K1, K2) take no sliding window")
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                kv_mask=kv_mask, causal=causal, sm_scale=sm_scale,
                                causal_offset=causal_offset)
     return attention_plain(q, k, v, kv_mask=kv_mask, causal=causal,
-                           sm_scale=sm_scale, causal_offset=causal_offset)
+                           sm_scale=sm_scale, causal_offset=causal_offset, window=window)

@@ -126,12 +126,13 @@ def ring_decode_attention_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     k_ring: torch.Tensor, v_ring: torch.Tensor, page_table: torch.Tensor,
     pages_len: torch.Tensor, lengths: torch.Tensor, layer_index: int,
-    sm_scale: Optional[float] = None,
+    sm_scale: Optional[float] = None, window: int = 0,
 ) -> torch.Tensor:
     """Gather-based twin: concat [gathered pages, ring] and attend.
 
     Valid keys of slot b: page positions < pages_len[b] and ring rows
-    r <= lengths[b] - pages_len[b].
+    r <= lengths[b] - pages_len[b]; with ``window`` > 0 only those at
+    positions > lengths[b] - window (ring row r sits at pages_len[b] + r).
     """
     B, H, D = q.shape
     _, Hkv, _, P, _ = k_pages.shape
@@ -149,7 +150,12 @@ def ring_decode_attention_plain(
     dev = q.device
     page_mask = torch.arange(pm * P, device=dev)[None, :] < pages_len[:, None]
     ring_mask = torch.arange(T, device=dev)[None, :] <= (lengths - pages_len)[:, None]
-    mask = torch.cat([page_mask, ring_mask], dim=1)[:, None, None, :]  # (B,1,1,N)
+    mask = torch.cat([page_mask, ring_mask], dim=1)
+    if window > 0:
+        pos = torch.cat([torch.arange(pm * P, device=dev)[None, :].expand(B, -1),
+                         pages_len[:, None] + torch.arange(T, device=dev)[None, :]], dim=1)
+        mask = mask & (pos > (lengths - window)[:, None])
+    mask = mask[:, None, None, :]  # (B,1,1,N)
 
     group = H // Hkv
     qg = q.reshape(B, Hkv, group, D).float()
@@ -231,14 +237,16 @@ def ring_decode_attention(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     k_ring: torch.Tensor, v_ring: torch.Tensor, page_table: torch.Tensor,
     pages_len: torch.Tensor, lengths: torch.Tensor, layer_index: int,
-    sm_scale: Optional[float] = None,
+    sm_scale: Optional[float] = None, window: int = 0,
 ) -> torch.Tensor:
     """One decode query per slot over [pages < pages_len, ring rows <=
     lengths - pages_len] of layer ``layer_index``. q: (B, H, D) -> (B, H, D).
 
     ``lengths`` counts the tokens before this step's token; ring row
     ``lengths - pages_len`` already holds this step's K/V. Inactive slots
-    (stale tables and lengths) give garbage rows the caller discards.
+    (stale tables and lengths) give garbage rows the caller discards. A
+    ``window`` > 0 (a sliding-window layer) keeps the keys at positions >
+    lengths - window: the kernel does not load the pages before them.
     """
     _check_pool(k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths)
     L, Hkv, n_pages, P, D = k_pages.shape
@@ -258,7 +266,7 @@ def ring_decode_attention(
     if q.device.type == "cpu":
         return ring_decode_attention_plain(
             q, k_pages, v_pages, k_ring, v_ring, page_table, pages_len, lengths,
-            layer_index, sm_scale)
+            layer_index, sm_scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"ring_decode_attention runs on cpu or cuda, not {q.device}")
     _check_decode_shape(B, H, Hkv, D, P, q.dtype)
@@ -273,7 +281,7 @@ def ring_decode_attention(
         v_ring.data_ptr(), page_table.data_ptr(), pages_len.data_ptr(),
         lengths.data_ptr(), work.data_ptr(), counters.data_ptr(), o.data_ptr(),
         L, B, H, Hkv, D, n_pages, P, pm, T, int(layer_index), float(sm_scale), max_splits,
-        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+        max(int(window), 0), _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     _build.check("ring_decode_attention", code)
     launches["ring_decode_attention"] += 1
     return o

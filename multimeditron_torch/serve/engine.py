@@ -57,6 +57,15 @@ place). On the card with paged KV and no speculation it is captured once,
 at the first live step, as a CUDA graph and replayed for every live step
 (``n_decode_graph_steps`` counts the replays); elsewhere it runs eagerly.
 
+A decoder with routed experts (``models/moe.py``) counts on the device, in
+each expert layer's call, the experts that received a token and the
+assignments; the counts of a decode chunk and of a prefill call travel home
+in the same ``.cpu()`` as its tokens and land in the engine's
+``n_experts_touched`` / ``n_expert_assignments`` and on the
+``decode.chunk`` and ``engine.prefill`` spans (``experts_touched``,
+``expert_assignments``). A decoder with sliding windows or experts serves
+through the paged plain path only.
+
 Each phase of a plain step (admission, each prefill call and its parts,
 forks, the decode chunk, each decode step and its parts, the fold, the
 readback and the host-mirror replay) records a span in
@@ -79,7 +88,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multimeditron_torch.models.llama import init_kv_cache, init_paged_kv_cache
+from multimeditron_torch.models.llama import (
+    init_kv_cache,
+    init_paged_kv_cache,
+    refuse_windows_or_experts,
+)
 from multimeditron_torch.models.llama_quant import is_quantized, quantize_llama
 from multimeditron_torch.models.multimodal import MultimodalModel, mm_item_count
 from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
@@ -166,6 +179,14 @@ class ServingEngine:
             raise ValueError("w8a8_prefill requires quantize_llm")
         if cfg.kv_mode not in ("paged", "slab"):
             raise ValueError(f"kv_mode must be paged|slab, got {cfg.kv_mode!r}")
+        llm_cfg = model.config.llm
+        if cfg.kv_mode == "slab":
+            refuse_windows_or_experts(llm_cfg, "slab decode (kernel K1 has no window)")
+        if cfg.speculative_k > 0:
+            refuse_windows_or_experts(llm_cfg, "speculative decoding (the verify block, "
+                                      "kernel K6, has no window)")
+        if cfg.quantize_llm:
+            refuse_windows_or_experts(llm_cfg, "quantize_llm (no int8 experts)")
         self.paged = cfg.kv_mode == "paged"
         self.cache_keys = PAGED_CACHE_KEYS if self.paged else SLAB_CACHE_KEYS
         self.model = model.eval()
@@ -251,6 +272,10 @@ class ServingEngine:
         self.spec_verify_steps = 0
         self.spec_slot_steps = 0
         self.spec_emitted = 0
+        # an expert decoder's (experts touched, assignments), summed over its
+        # expert layers' calls, as read back with each chunk and prefill
+        self.n_experts_touched = 0
+        self.n_expert_assignments = 0
         # the decode step's CUDA graph, captured at the first live step, and
         # its key on the device. The graph serves the card's paged plain
         # decode; elsewhere the key is None and every step runs eagerly
@@ -539,7 +564,9 @@ class ServingEngine:
                         torch.tensor([req.max_new_tokens], dtype=torch.int32, device=dev),
                         temps, top_ps, page_row,
                         torch.from_numpy(ids[None].astype(np.int32)).to(dev))
-                    first = int(first.cpu()[0])
+                    first, moe = self._read_back(first)
+                    self._count_experts(sp, moe)
+                    first = int(first[0])
         self._admit_on_host(req, slot, plen, first, time.time())
 
     def _admit_on_host(self, req: Request, slot: int, length: int, first: int,
@@ -657,12 +684,16 @@ class ServingEngine:
         """Capture :meth:`_decode_step` as a CUDA graph over the state's
         tensors and the static key, after one eager warm-up step on the
         capture stream whose state writes are undone (the ring row it
-        writes, the step writes again before any read). The graph reads
+        writes, the step writes again before any read; an expert decoder's
+        counters are restored). The graph reads
         the decoder's parameters and the state's tensors by address:
         weights updated in place are seen, a tensor replaced is not."""
         st, dev = self.state, self.device
         names = ("tokens", "active", "remaining", "length")
         saved = [st[n].clone() for n in names]
+        # an expert decoder's counters, which the warm-up step would count too
+        stats = self.llm.moe_stats
+        saved_stats = None if stats is None else stats.clone()
         key = self._graph_key if self.cfg.do_sample else None
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -670,6 +701,8 @@ class ServingEngine:
             self._decode_step(key)
             for n, t in zip(names, saved):
                 st[n].copy_(t)
+            if stats is not None:
+                stats.copy_(saved_stats)
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
@@ -1025,13 +1058,33 @@ class ServingEngine:
                     t([r.temperature for r in group], torch.float32),
                     t([r.top_p for r in group], torch.float32),
                     t([r.max_new_tokens for r in group], torch.int32), self._next_seed())
-                lengths, first = lengths.cpu().numpy(), first.cpu().numpy()
+                both, moe = self._read_back(torch.stack([lengths, first]))
+                lengths, first = both.numpy()
             self._last_prefill_logits = last_logits
             self.n_prefill_calls += 1
+            self._count_experts(sp, moe)
 
         now = time.time()
         for j, (req, slot) in enumerate(zip(group, slots)):
             self._admit_on_host(req, slot, int(lengths[j]), int(first[j]), now)
+
+    def _read_back(self, x: torch.Tensor):
+        """``x`` (int32) on the host and, for an expert decoder, the expert
+        counts gathered on the device since the last read, in the same copy
+        (their counter is zeroed for the next call); else None."""
+        stats = self.llm.moe_stats
+        if stats is None:
+            return x.cpu(), None
+        packed = torch.cat([x.reshape(-1), stats.to(torch.int32)]).cpu()
+        stats.zero_()
+        return packed[:-2].view(x.shape), packed[-2:].tolist()
+
+    def _count_experts(self, sp, moe) -> None:
+        if moe is None:
+            return
+        self.n_experts_touched += moe[0]
+        self.n_expert_assignments += moe[1]
+        sp.set(experts_touched=moe[0], expert_assignments=moe[1])
 
     def _finish(self, slot: int, reason: str = "budget") -> None:
         if self.paged:
@@ -1072,10 +1125,12 @@ class ServingEngine:
             chunk_now = 1 << (chunk_now.bit_length() - 1)
 
             active_at_start = self.active.copy()
-            with tracer.span("decode.chunk"), torch.inference_mode():
+            with tracer.span("decode.chunk") as sp, torch.inference_mode():
                 toks = self._decode_chunk(chunk_now)
                 with tracer.span("decode.wait"):
-                    toks = toks.cpu().numpy()  # (chunk, slots)
+                    toks, moe = self._read_back(toks)
+                    toks = toks.numpy()  # (chunk, slots)
+                self._count_experts(sp, moe)
 
             # Advance the host mirrors from the tokens alone, replicating the
             # device's deactivation rules.

@@ -167,6 +167,96 @@ def test_ring_decode_kernel_skips_poisoned_rows(gen):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [16, 128])
+def test_ring_decode_kernel_window(gen, dtype, P):
+    """K4 with a sliding window against its twin: windows that start in an
+    earlier page, at a page boundary, inside the ring, and one wider than
+    every slot; a slot of one key; pages_len past a 64-key tile. Keys before
+    a window's first tile are poisoned: the kernel never loads them."""
+    pm = 8
+    pages_len = [0, 1, 7 * P + 5, 3, 6 * P, 2 * P - 1, 8 * P - 16, 70]
+    gen_rows = [0, 2, 15, 0, 9, 4, 15, 11]
+    args = _paged(gen, dtype, 8, 32, 8, 128, P, pm, pages_len, gen_rows)
+    q, kp, vp, rk, rv, table, plen, lengths = args
+    for window in (4, 13, 64, 100, 1024, 4096):
+        want = paged.ring_decode_attention_plain(*args, 1, window=window)
+        got = paged.ring_decode_attention(*args, 1, window=window)
+        _assert_close(got, want, dtype)
+        assert torch.equal(got, paged.ring_decode_attention(*args, 1, window=window))
+    # NaN in every page row before each slot's window, rounded down to 64 keys
+    window = 70
+    clean = paged.ring_decode_attention(*args, 1, window=window)
+    kp2, vp2 = kp.clone(), vp.clone()
+    for b in range(8):
+        first = max(0, int(lengths[b]) + 1 - window)
+        for pos in range(min(first // 64 * 64, int(plen[b]))):
+            page = int(table[b, pos // P])
+            kp2[1, :, page, pos % P] = float("nan")
+            vp2[1, :, page, pos % P] = float("nan")
+    got = paged.ring_decode_attention(q, kp2, vp2, rk, rv, table, plen, lengths, 1,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+    # no window: K4 as before, whatever the argument's spelling
+    assert torch.equal(paged.ring_decode_attention(*args, 1, window=0),
+                       paged.ring_decode_attention(*args, 1))
+
+
+def _experts_case(gen, N, D, F_, E, k, idle=True):
+    """Router-like inputs: the top k of a softmax over random scores (expert
+    E - 1 chosen by no token when ``idle``), renormalised."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    x = randn(N, D)
+    w = (randn(E, F_, D, scale=D ** -0.5), randn(E, F_, D, scale=D ** -0.5),
+         randn(E, D, F_, scale=F_ ** -0.5))
+    scores = torch.randn(N, E, generator=gen, device="cuda")
+    if idle:
+        scores[:, E - 1] = -1e9
+    top, ids = torch.topk(torch.softmax(scores, dim=-1), k, dim=-1)
+    return x, ids, top / top.sum(dim=-1, keepdim=True), w
+
+
+@pytest.mark.parametrize("N,D,F_,E,k", [
+    (128, 2304, 896, 64, 8),    # Mellum2's 128-slot decode step
+    (1024, 2304, 896, 64, 8),   # a 1,024-token prefill chunk
+    (37, 256, 128, 8, 2),       # ragged rows, an expert past a 64-row tile
+    (1, 128, 64, 4, 3),
+    (300, 384, 192, 5, 5),      # every expert for every token
+])
+def test_grouped_experts_kernel(gen, N, D, F_, E, k):
+    """The grouped-expert kernel against its twin, with an expert that gets
+    no token (except where k = E), its counters, and two runs bitwise equal
+    (the route's atomics order rows within an expert at random; a row's
+    result does not depend on its neighbours)."""
+    from multimeditron_torch.ops import grouped_experts as ge
+
+    x, ids, weights, w = _experts_case(gen, N, D, F_, E, k, idle=k < E)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    before = ge.launches["grouped_experts"]
+    got = ge.grouped_experts(x, ids, weights, *w, stats)
+    assert ge.launches["grouped_experts"] == before + 1
+    twin_stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    want = ge.grouped_experts_plain(x, ids, weights, *w, twin_stats)
+    _assert_close(got, want, torch.bfloat16)
+    assert torch.equal(stats, twin_stats)
+    assert int(stats[0]) == (E if k == E else len(set(ids.flatten().tolist())))
+    assert torch.equal(got, ge.grouped_experts(x, ids, weights, *w))
+
+
+def test_grouped_experts_kernel_refuses_what_it_does_not_take(gen):
+    from multimeditron_torch.ops import grouped_experts as ge
+
+    x, ids, weights, w = _experts_case(gen, 4, 256, 128, 4, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ge.grouped_experts(x.float(), ids, weights, *(t.float() for t in w))
+    x2, ids2, weights2, w2 = _experts_case(gen, 4, 192, 128, 4, 2)
+    with pytest.raises(ValueError, match="D % 128"):
+        ge.grouped_experts(x2, ids2, weights2, *w2)
+
+
 def _k8(gen, dtype, B, H, Hkv, D, P, pm, lengths):
     """One layer's pool where slot b's lengths[b] tokens live in shuffled
     pages (page 0, the trash page, unused)."""
@@ -1173,6 +1263,52 @@ def _serve_pair(eng, prompts, group: bool):
         reqs.append(eng.submit(b, max_new_tokens=n, temperature=0.0 if j == 2 else None))
     eng.run()
     return reqs
+
+
+def test_moe_decode_graph_matches_eager_loop(gen):
+    """A bf16 decoder with sliding windows of 16 keys and 8 experts (2 a
+    token) on the card: the replayed decode step (the grouped-expert
+    kernel's four launches and the windowed K4 inside the graph) against
+    the eager loop, sampled, with a forked group: equal tokens, equal state
+    and page pool, equal expert counters; every live step a replay."""
+    from multimeditron_torch.models.llama import LlamaConfig
+    from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
+    from multimeditron_torch.ops import grouped_experts as ge
+    from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
+
+    kinds = ["sliding_attention", "sliding_attention", "full_attention"]
+    hf = dict(model_type="mellum", vocab_size=64, hidden_size=256, intermediate_size=512,
+              num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+              layer_types=kinds, mlp_layer_types=["sparse"] * 3, sliding_window=16,
+              rope_parameters={"full_attention": {
+                  "rope_type": "yarn", "rope_theta": 500000, "factor": 4,
+                  "original_max_position_embeddings": 32},
+                  "sliding_attention": {"rope_type": "default", "rope_theta": 500000}},
+              num_experts=8, num_experts_per_tok=2, moe_intermediate_size=128)
+    model = MultimodalModel(MultimodalConfig(llm=LlamaConfig.from_hf_dict(hf),
+                                             eos_token_idx=10), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    ecfg = EngineConfig(max_slots=3, max_seq_len=47, prefill_buckets=(16, 32), page_size=16,
+                        decode_chunk=4, max_new_tokens=40, do_sample=True, temperature=1.0,
+                        seed=2 ** 31 - 7)
+    graph, eager = ServingEngine(model, ecfg), ServingEngine(model, ecfg)
+    eager._graph_key = None
+    before = ge.launches["grouped_experts"]
+    prompts = _graph_prompts(64)
+    got = _serve_pair(graph, prompts, group=True)
+    launched = ge.launches["grouped_experts"] - before
+    want = _serve_pair(eager, prompts, group=True)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    for name in ("length", "pages_length", "active", "remaining", "tokens"):
+        assert torch.equal(graph.state[name], eager.state[name]), name
+    for name in ("k", "v"):  # every page but the trash page, which nothing reads
+        assert torch.equal(graph.state[name][:, :, 1:], eager.state[name][:, :, 1:]), name
+    assert graph.n_decode_graph_steps == graph.n_decode_steps > 0
+    assert (graph.n_experts_touched, graph.n_expert_assignments) == \
+        (eager.n_experts_touched, eager.n_expert_assignments)
+    # the graph engine's host launches: 3 a prefill call, 3 in the eager step
+    # before the capture and 3 in the capture
+    assert launched == 3 * (graph.n_prefill_calls + 2)
 
 
 @pytest.mark.parametrize("case", ["greedy", "sampled", "forked", "w8a16"])
