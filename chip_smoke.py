@@ -4,7 +4,7 @@ Run from the repository root:
 
     python3 chip_smoke.py [--mellum-only]
 
-(``--mellum-only``: phases 1, 2 and 14 alone).
+(``--mellum-only``: phases 1, 2, 14 and 15 alone).
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -53,7 +53,9 @@ Phases, each of which raises on failure (non-zero exit):
    run(), timed; then one more such round under torch.profiler that counts
    each kernel's launches (each decode step is a replay of the graph the
    warm-up round captured, so K4 and K9 are counted from the round's device
-   records, the others on the host);
+   records, the others on the host), and the sampler kernel's pass and
+   reduce at least once an eager sampling call and once a replayed step,
+   from the same records (so also in phases 10-12);
 6. training end to end in float32: 3 optimizer steps of MultimodalTrainer in
    ALIGNMENT and in FULL (remat, grad_accum=2) on the card against the CPU
    (losses and updated parameters must agree); and ALIGNMENT with
@@ -117,7 +119,17 @@ Phases, each of which raises on failure (non-zero exit):
    of 400-1,300 prompt tokens and a forked group of 4, one image each, 64
    new tokens): every decode step a graph replay, the expert kernel 28
    times a step and a prefill call's, K4 28 times a step, from the counted
-   round's device records.
+   round's device records; the sampler kernel's pass and reduce at least
+   once an eager sampling call and once a replayed step, from the same
+   records, and as many as ``n_kernel_samples``;
+15. the sampler kernel (``csrc/gumbel_argmax.cu``: Threefry bits, Gumbel
+   noise, temperature, greedy and sampled argmax in one pass) against the
+   eager int64 chain on the card at the serving cells' shapes, bf16 logits:
+   128 x 98,304 (grpo-long: every 2nd group of 8 greedy, and all rows
+   sampled) and 32 x 131,072 (grpo-rollout): tokens bitwise equal over
+   seeds, the kernel's device time, the eager chain's, and the bound (bytes
+   at 3.35 TB/s, or the hash's uint32 operations: its rotates, xors and
+   shifts on the ALU pipe, its adds on the ALU and FMA pipes; the larger).
 
 Phase 3 also holds K9 (the weight-only int8 matmul) against its twin at the
 Llama-3.1-8B projection shapes (M = 8, 40 and 4,096, and the lm_head at
@@ -156,6 +168,7 @@ from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalMo
 from multimeditron_torch.ops import encoder_attention as enc
 from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
+from multimeditron_torch.ops import sampling
 from multimeditron_torch.ops import vit_int8_fused as v8
 from multimeditron_torch.ops import wo_matmul as wo
 from multimeditron_torch.convert import export_jax_params, load_jax_params
@@ -301,7 +314,7 @@ W8A8_PER_PREFILL = 4 * 32
 # sources whose kernels' registers and spills phase 2 prints (-Xptxas -v;
 # K7d and K7e report 168 registers, the count at launch, under setmaxnreg)
 PTXAS_REPORTED = ("vit_int8_gemm.cu", "vit_int8_fc1.cu", "vit_int8_fc2.cu", "wo_matmul.cu",
-                  "ring_decode.cu")
+                  "ring_decode.cu", "gumbel_argmax.cu")
 
 T_START = time.perf_counter()
 
@@ -926,20 +939,6 @@ def check_flash(dtype, gen) -> dict:
     }
 
 
-def time_sampler(gen) -> dict:
-    """One plain decode step's sampling at full width, (8, 128256) float32
-    logits: the host key split and the threefry categorical, against the
-    greedy argmax."""
-    logits = torch.randn(8, 128256, generator=gen, device="cuda")
-    key = prng.prng_key(0)
-
-    def sample():
-        _, sub = prng.split(key)
-        return prng.categorical(sub, logits)
-
-    return dict(threefry_ms=time_ms(sample), argmax_ms=time_ms(lambda: logits.argmax(dim=-1)))
-
-
 # ----------------------------------------------------------------------
 # Phase 3, K7: the W8A8 ViT kernels against their twins
 # ----------------------------------------------------------------------
@@ -1443,9 +1442,11 @@ def check_w8a16_launches(counts: dict, steps: int, prefill_calls: int) -> None:
 
 
 # device records of the kernels a CUDA graph's replays launch: K4 (the ring
-# form of decode_kernel) and K9
+# form of decode_kernel), K9 and the sampler's pass and reduce
+SAMPLER_KERNELS = {"gumbel_argmax": r"gumbel_argmax_kernel",
+                   "gumbel_argmax_reduce": r"gumbel_argmax_reduce_kernel"}
 GRAPH_KERNELS = {"ring_decode_attention": r"\bdecode_kernel<[^<>]*, true>",
-                 "wo_matmul": r"\bwo_(wgmma|f32)_kernel\b"}
+                 "wo_matmul": r"\bwo_(wgmma|f32)_kernel\b", **SAMPLER_KERNELS}
 
 
 def device_records(fn, patterns: dict) -> dict:
@@ -1460,6 +1461,36 @@ def device_records(fn, patterns: dict) -> dict:
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return {k: sum(1 for n in names if re.search(rx, n)) for k, rx in patterns.items()}
+
+
+def count_sample_calls(engine: ServingEngine) -> list:
+    """Wrap ``engine._sample``: the list returned grows by one at each call
+    made outside a graph capture (a call whose launches run at once)."""
+    calls, sample = [], engine._sample
+
+    def counted(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append(1)
+        return sample(*args, **kw)
+
+    engine._sample = counted
+    return calls
+
+
+def check_sampler_records(records: dict, kernel_samples: int, eager: int, steps: int) -> dict:
+    """The sampler kernel in a counted round, from its device records: a pass
+    and a reduce launch for each of the ``eager`` sampling calls and each of
+    the ``steps`` replayed decode steps, and as many as the engine counted
+    (``n_kernel_samples``)."""
+    got = dict(pass_launches=records["gumbel_argmax"],
+               reduce_launches=records["gumbel_argmax_reduce"],
+               eager_calls=eager, replays=steps, kernel_samples=kernel_samples)
+    if (not eager or not steps or got["pass_launches"] < eager + steps
+            or got["reduce_launches"] != got["pass_launches"]
+            or kernel_samples != got["pass_launches"]):
+        raise AssertionError(f"the sampler kernel did not run once a sampling call and once a "
+                             f"replayed step: {got}")
+    return got
 
 
 def check_requests(reqs, vocab: int, budget: int = 64) -> None:
@@ -1533,7 +1564,8 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
     # records, which the wrappers' host counts miss
     reset_launch_counts()
     engine.n_prefill_calls = engine.n_decode_steps = engine.n_decode_chunks = 0
-    engine.n_decode_graph_steps = 0
+    engine.n_decode_graph_steps = engine.n_kernel_samples = 0
+    eager_samples = count_sample_calls(engine)
     reqs = [engine.submit(b, max_new_tokens=64) for b in requests()]
     records = device_records(engine.run, GRAPH_KERNELS)
     counts = launch_counts(TOWER_KERNELS + DECODE)
@@ -1543,7 +1575,10 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
     work = dict(prefill_calls=engine.n_prefill_calls, decode_steps=engine.n_decode_steps,
                 decode_graph_steps=engine.n_decode_graph_steps,
                 decode_chunks=engine.n_decode_chunks)
-    log(f"  launches (K4, K9: device records): {counts}; work: {work}")
+    sampler = check_sampler_records(records, engine.n_kernel_samples, len(eager_samples),
+                                    work["decode_steps"])
+    log(f"  launches (K4, K9: device records): {counts}; work: {work}; sampler (device "
+        f"records): {sampler}")
 
     check_requests(reqs, vocab)
     check_tower_launches(tower, counts, work["prefill_calls"])
@@ -1617,7 +1652,8 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
         **timed,
         prefill_profile=prefill,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=counts, **work, **({"fidelity": fidelity} if fidelity else {}))
+        launches=counts, sampler=sampler, **work,
+        **({"fidelity": fidelity} if fidelity else {}))
     log(f"  TTFT p50 {out['ttft_p50_ms']:.1f} ms, p95 {out['ttft_p95_ms']:.1f} ms, decode "
         f"{out['decode_tok_per_s']:.1f} tok/s over {out['timed_decode_steps']} steps, peak "
         f"memory {out['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s")
@@ -2369,7 +2405,8 @@ MELLUM_CONFIG = "bench_torch/configs/mellum2-12b-a2.5b-clip-l14.json"
 # each kernel's device records, a decode graph's replays included: the route
 # launch stands for the expert kernel's four (route, gate-up, down, combine)
 MELLUM_KERNELS = {"grouped_experts": r"\bgrouped_experts_route_kernel\b",
-                  "ring_decode_attention": GRAPH_KERNELS["ring_decode_attention"]}
+                  "ring_decode_attention": GRAPH_KERNELS["ring_decode_attention"],
+                  **SAMPLER_KERNELS}
 
 
 def mellum_k4_case(gen, lengths, T: int = 16):
@@ -2536,8 +2573,9 @@ def run_mellum_full_width() -> dict:
     ge.launches["grouped_experts"] = 0
     reset_launch_counts(("ring_decode_attention",))
     for name in ("n_prefill_calls", "n_decode_steps", "n_decode_chunks", "n_decode_graph_steps",
-                 "n_experts_touched", "n_expert_assignments"):
+                 "n_experts_touched", "n_expert_assignments", "n_kernel_samples"):
         setattr(engine, name, 0)
+    eager_samples = count_sample_calls(engine)
     t0 = time.perf_counter()
     reqs = submit_all(64)
     records = device_records(engine.run, MELLUM_KERNELS)
@@ -2548,6 +2586,8 @@ def run_mellum_full_width() -> dict:
                 decode_graph_steps=engine.n_decode_graph_steps,
                 experts_touched_per_layer_step=engine.n_experts_touched / max(1, L * steps),
                 host_expert_launches=ge.launches["grouped_experts"], wall_s=wall)
+    work["sampler"] = check_sampler_records(records, engine.n_kernel_samples,
+                                            len(eager_samples), steps)
     log(f"  device records {records}; work {work}")
     if work["decode_graph_steps"] != steps or steps == 0:
         raise AssertionError(f"a decode step ran outside the graph: {work}")
@@ -2575,9 +2615,81 @@ def mellum_phase() -> dict:
     return dict(kernels=kernels, engine=run_mellum_full_width())
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the sampler kernel against the eager int64 chain at the serving
+# cells' shapes
+
+# uint32 operations the kernel spends on a sampled element. On the ALU pipe
+# alone: 20 rounds' rotate and xor, the words' xor, the uniform's shift and
+# or. Adds, which nvcc may also issue to the FMA pipe (IMAD.IADD): the
+# counter, 20 rounds' add, five key injections of two adds each
+SAMPLER_ALU_OPS = 20 * 2 + 1 + 2
+SAMPLER_ADD_OPS = 1 + 20 + 5 * 2
+# the H100 SXM's integer issue: 64 lanes a cycle on each of 132 SMs on the
+# ALU pipe, 64 more for adds on the FMA pipe, at the 1,980 MHz behind the
+# data sheet's 67 TFLOP/s. The float work (division, two logf) is left out:
+# the bound is a floor
+SM_LANE_CYCLES_PER_S = 132 * 64 * 1.98e9
+SAMPLER_CYCLES_PER_ELEMENT = max(SAMPLER_ALU_OPS, (SAMPLER_ALU_OPS + SAMPLER_ADD_OPS) / 2)
+SAMPLER_SEEDS = (4_000_000_001, 2 ** 31 - 1, 7, 123_456_789)
+
+
+def check_sampler_case(gen, rows: int, V: int, greedy_groups: bool) -> dict:
+    """``sampling.sample`` on (rows, V) bf16 logits with a key on the card
+    (the decode graph's form) against ``sampling.sample_plain``, the eager
+    chain, on the same card: tokens bitwise equal at every seed, then both
+    timed at the first. ``greedy_groups``: every 2nd group of 8 rows at
+    temperature 0 (grpo-long's traffic), else every row at 1.0."""
+    logits = (torch.randn(rows, V, generator=gen, device="cuda") * 3).bfloat16()
+    temps = torch.ones(rows, device="cuda")
+    if greedy_groups:
+        temps.view(-1, 16)[:, 8:] = 0.0
+    keys = [prng.split(prng.prng_key(seed % 2 ** 31))[1].cuda() for seed in SAMPLER_SEEDS]
+    before = sampling.launches["gumbel_argmax"]
+    for key in keys:
+        got, want = sampling.sample(logits, temps, key), sampling.sample_plain(logits, temps, key)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:, 0].tolist()
+            raise AssertionError(f"sampler {rows} x {V}: rows {bad[:8]} differ from the eager "
+                                 f"chain ({len(bad)} of {rows})")
+    if sampling.launches["gumbel_argmax"] != before + len(keys):
+        raise AssertionError("the sampler's calls did not launch the kernel")
+    key = keys[0]
+    sampled = int((temps > sampling.MIN_TEMP).sum())
+
+    def run():
+        return sampling.sample(logits, temps, key)
+
+    def plain():
+        return sampling.sample_plain(logits, temps, key)
+
+    bytes_moved = rows * V * 2 + rows * 4 * 2  # logits and temps in, tokens out
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = sampled * V * SAMPLER_CYCLES_PER_ELEMENT / SM_LANE_CYCLES_PER_S * 1e3
+    r = dict(rows=rows, vocab=V, sampled_rows=sampled, seeds=len(keys), ms=time_ms(run),
+             device_ms=device_ms(run, n=20), plain_ms=time_ms(plain, n=5),
+             plain_device_ms=device_ms(plain, n=5), bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"  sampler {rows} x {V} bf16, {sampled} rows sampled: bitwise equal at {len(keys)} "
+        f"seeds; kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), eager chain "
+        f"{r['plain_ms']:.4f} ms (device {fmt_ms(r['plain_device_ms'])}), bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return r
+
+
+def sampler_phase() -> dict:
+    phase("[15] the sampler kernel against the eager chain at the serving cells' shapes")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {"grpo-long": check_sampler_case(gen, 128, 98304, greedy_groups=True),
+           "grpo-long, all rows sampled": check_sampler_case(gen, 128, 98304, False),
+           "grpo-rollout": check_sampler_case(gen, 32, 131072, greedy_groups=False)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mellum-only", action="store_true", help="phases 1, 2 and 14 alone")
+    ap.add_argument("--mellum-only", action="store_true", help="phases 1, 2, 14 and 15 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2607,7 +2719,9 @@ def main(argv=None) -> int:
 
     if args.mellum_only:
         mellum = mellum_phase()
+        sampler = sampler_phase()
         print(json.dumps({"mellum_full_width": mellum}))
+        print(json.dumps({"sampler": sampler}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2642,9 +2756,6 @@ def main(argv=None) -> int:
     for name in res:  # the encode shape's numbers head each int8 tower kernel's entry
         results[name] = {**results[name]["encode"], "serving_shape": results[name]["serving"]}
     results["wo_matmul"] = check_wo_matmul(gen)
-    sampler = time_sampler(gen)
-    log(f"  sampling (8, 128256) f32: threefry categorical {sampler['threefry_ms']:.4f} ms, "
-        f"argmax {sampler['argmax_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
     phase("[4] f32 engine: card vs CPU (greedy, speculative, forked, chunked, staggered)")
@@ -2714,6 +2825,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mellum = mellum_phase()
+    sampler = sampler_phase()
 
     # each kernel's launches in the full-width run of its path
     launches = {**full["launches"], **{n: trained["launches"][n] for n in TRAINING},
@@ -2737,8 +2849,7 @@ def main(argv=None) -> int:
                     launches=launches[name], **results[name])
                for name, k in KERNELS.items()]
     log(f"  all phases: {time.perf_counter() - T_START:.1f} s")
-    print(json.dumps({"full_width": {**{k: v for k, v in full.items() if k != "launches"},
-                                     "sampler_ms": sampler}}))
+    print(json.dumps({"full_width": {k: v for k, v in full.items() if k != "launches"}}))
     print(json.dumps({"train_full_width": trained}))
     print(json.dumps({"spec_full_width": spec}))
     print(json.dumps({"int8_encode": encode}))
@@ -2748,6 +2859,7 @@ def main(argv=None) -> int:
     print(json.dumps({"other_calibrations": others}))
     print(json.dumps({"slab_full_width": slab}))
     print(json.dumps({"mellum_full_width": mellum}))
+    print(json.dumps({"sampler": sampler}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,10 @@ SIGNATURES = {
     # x, w_q, w_s, out, work (float32 scratch or NULL), counters (int32 zeros
     # or NULL), M, K, N, tile_n, splits, chunks_per_split, dtype, stream
     "mmt_wo_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # logits, temps (or NULL), key (int64 on the device, or NULL), key_stride,
+    # k1, k2 (the host key's words), partial (int32 scratch), tokens (int32),
+    # rows, V, splits, dtype, stream
+    "mmt_gumbel_argmax": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -12,8 +12,9 @@ valid position.
 
 Random numbers are JAX's threefry keys (``serve/prng.py``): the default key
 is ``prng_key(0)``, split once before the first token and once per step, and
-``categorical`` draws with the split key, so every sampled token equals the
-JAX function's for the same key and logits.
+``categorical`` draws with the split key (``ops/sampling.py``: one kernel on
+the card), so every sampled token equals the JAX function's for the same key
+and logits.
 
 The API adapts to modules: ``generate(model, batch, ...)`` takes no
 ``params`` (the module holds its weights), and ``make_generate_fn(model,
@@ -32,6 +33,7 @@ import torch
 
 from multimeditron_torch.models.llama import init_kv_cache, refuse_windows_or_experts
 from multimeditron_torch.models.multimodal import MultimodalModel
+from multimeditron_torch.ops import sampling
 from multimeditron_torch.serve import prng
 
 
@@ -58,7 +60,7 @@ def sample_tokens(
         cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = torch.where(logits < cutoff, -torch.inf, logits)
-    return prng.categorical(key, logits).to(torch.int32)
+    return sampling.gumbel_argmax(logits.contiguous(), key)
 
 
 def _to_device(x, device, dtype=None) -> torch.Tensor:

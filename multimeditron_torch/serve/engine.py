@@ -29,7 +29,11 @@ Counterpart of ``multimeditron_tpu/serve/engine.py``. ``kv_mode="paged"``
   (prompt, seed) independent of k;
 - per-slot temperature / top-k / top-p sampling on the device, with JAX's
   threefry keys (``serve/prng.py``): every sampled token equals the JAX
-  engine's for the same logits;
+  engine's for the same logits. On the card the draw (hash, Gumbel noise,
+  temperature, greedy and sampled argmax) is one kernel
+  (``ops/sampling.py``), after the eager top-k / top-p filter when either
+  is on; ``n_kernel_samples`` counts the sampling calls that ran it, graph
+  replays included;
 - the INT8 LLM (``quantize_llm``): the engine serves a quantised copy of the
   model's decoder (``models/llama_quant.py``; W8A16 through kernel K9, fused
   qkv and gate-up), leaving the caller's model as it is; with
@@ -95,6 +99,7 @@ from multimeditron_torch.models.llama import (
 )
 from multimeditron_torch.models.llama_quant import is_quantized, quantize_llama
 from multimeditron_torch.models.multimodal import MultimodalModel, mm_item_count
+from multimeditron_torch.ops import sampling
 from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
 from multimeditron_torch.profiling import tracer
 from multimeditron_torch.serve import prng
@@ -268,6 +273,7 @@ class ServingEngine:
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
         self.n_decode_graph_steps = 0  # of n_decode_steps, those run as a graph replay
+        self.n_kernel_samples = 0  # sampling calls that ran the sampler kernel, replays included
         self.n_decode_chunks = 0
         self.spec_verify_steps = 0
         self.spec_slot_steps = 0
@@ -280,6 +286,7 @@ class ServingEngine:
         # its key on the device. The graph serves the card's paged plain
         # decode; elsewhere the key is None and every step runs eagerly
         self._decode_graph = None
+        self._graph_samples = 0  # sampler kernel launches in one replay of the graph
         self._graph_key = None
         if self.device.type == "cuda" and self.paged and not self.spec_k:
             self._graph_key = torch.zeros((2,), dtype=torch.int64, device=dev)
@@ -371,14 +378,22 @@ class ServingEngine:
                 key: Optional[torch.Tensor]) -> torch.Tensor:
         """(n, V) logits -> (n,) int32 tokens; temperature 0 is greedy.
         ``key``: one key for all rows, or one per row (``prng.categorical``);
-        unused when the engine does not sample."""
-        logits = logits.float()
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-        if not self.cfg.do_sample:
-            return greedy
-        scaled = self._filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None], top_ps)
-        sampled = prng.categorical(key, scaled).to(torch.int32)
-        return torch.where(temps > 1e-6, sampled, greedy)
+        unused when the engine does not sample. Without top-k or top-p the
+        whole draw is ``sampling.sample``; with either, the filter runs
+        eagerly and ``sampling.gumbel_argmax`` draws from what it leaves."""
+        cfg = self.cfg
+        if not cfg.do_sample:
+            return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        launched = sampling.launches["gumbel_argmax"]
+        if not ((cfg.top_k or 0) > 0 or cfg.top_p < 1.0):
+            tokens = sampling.sample(logits.contiguous(), temps, key)
+        else:
+            logits = logits.float()
+            greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+            scaled = self._filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None], top_ps)
+            tokens = torch.where(temps > 1e-6, sampling.gumbel_argmax(scaled, key), greedy)
+        self.n_kernel_samples += sampling.launches["gumbel_argmax"] > launched
+        return tokens
 
     def _w8a8_gate(self, jax_rows: int) -> int:
         """The W8A8 row gate of a prefill call whose JAX counterpart has
@@ -705,8 +720,13 @@ class ServingEngine:
                 stats.copy_(saved_stats)
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
+        samples, launched = self.n_kernel_samples, sampling.launches["gumbel_argmax"]
         with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             self._decode_step(key)
+        # the capture ran nothing: the sampler launches it recorded count at
+        # each replay
+        self._graph_samples = sampling.launches["gumbel_argmax"] - launched
+        self.n_kernel_samples = samples
         self._decode_graph = graph
 
     def _decode_chunk(self, chunk: int) -> torch.Tensor:
@@ -745,6 +765,7 @@ class ServingEngine:
                                 self._graph_key.copy_(sub)
                             self._decode_graph.replay()
                         self.n_decode_graph_steps += 1
+                        self.n_kernel_samples += self._graph_samples
                 # a skipped step (every slot done) repeats the last token row
                 toks[i].copy_(st["tokens"])
         with tracer.span("decode.fold"):
@@ -794,23 +815,17 @@ class ServingEngine:
         block = torch.cat([tokens[:, None], self._draft(history, length, tokens)], dim=1)
         # a slab cache runs the block as a prefill: causal at per-slot offsets
         logits, new_cache = llm(inputs_embeds=llm.embed(block), kv_cache=cache, prefill=True)
-        logits = logits.float()                                  # (B, k+1, V)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         idx = torch.arange(k + 1, device=self.device)[None, :]
+        keys = None
         if cfg.do_sample:
             # position-keyed: the token at position p of slot b draws with
             # fold_in(PRNGKey(seed), b * 2**20 + p), whatever k and the drafts
             ids = (torch.arange(B, device=self.device)[:, None] * (1 << 20)
                    + length[:, None].long() + idx).reshape(-1)
             keys = prng.fold_in(prng.prng_key(_wrap_int32(cfg.seed)), ids)
-            V = logits.shape[-1]
-            scaled = self._filter_logits(
-                (logits / torch.clamp(st["temps"], min=1e-6)[:, None, None]).reshape(-1, V),
-                st["top_ps"].repeat_interleave(k + 1))
-            sampled = prng.categorical(keys, scaled).reshape(B, k + 1).to(torch.int32)
-            g = torch.where(st["temps"][:, None] > 1e-6, sampled, greedy)
-        else:
-            g = greedy
+        # (B, k+1, V) logits: one row a position, each with its slot's settings
+        g = self._sample(logits.reshape(B * (k + 1), -1), st["temps"].repeat_interleave(k + 1),
+                         st["top_ps"].repeat_interleave(k + 1), keys).reshape(B, k + 1)
         # accept the longest draft prefix the verifier agrees with, plus one
         match = (block[:, 1:] == g[:, :-1]).to(torch.int32)
         a = torch.cumprod(match, dim=1).sum(dim=1)

@@ -17,7 +17,10 @@ under every calibration shape, K9 at ragged N and M, split K and both tile
 heights, a quantised decoder on the card against the CPU, the flash
 backward at the edges of its tiles (Sq and Skv of 1, 17, 64, 127, 129 and
 1,000, a 128-key tile masked, the training layout at 1,024 rows) and its
-determinism (two runs bitwise equal). Gradients are
+determinism (two runs bitwise equal), and the sampler kernel's tokens
+bitwise equal to the eager int64 chain's (the serving cells' shapes, odd
+vocabularies, every key form, NaN, tied and filtered rows, a graph-captured
+decode step). Gradients are
 compared relative to the largest gradient value (they are not of order 1):
 f32 1e-4, bf16 2e-2. Float attention outputs are held max-abs as the other
 float kernels (f32 1e-4, bf16 2e-2, outputs of order 1): their P.V and
@@ -32,7 +35,9 @@ from multimeditron_torch.ops import attention as attn
 from multimeditron_torch.ops import encoder_attention as enc
 from multimeditron_torch.ops import flash_attention as fl
 from multimeditron_torch.ops import paged_attention as paged
+from multimeditron_torch.ops import sampling
 from multimeditron_torch.ops import vit_int8_fused as v8
+from multimeditron_torch.serve import prng
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1384,3 +1389,172 @@ def test_captured_launches_get_scratch_of_their_own(gen):
         torch.cuda.synchronize()
         assert torch.equal(counters, torch.ones(8, dtype=torch.int32, device=dev))
     assert not eager[1].any()
+
+
+# ----------------------------------------------------------------------
+# The sampler kernel (csrc/gumbel_argmax.cu) against the eager int64 chain on
+# the card: equal tokens, bit for bit
+
+SAMPLER_SEEDS = [2 ** 31 - 1, 4_000_000_001 % 2 ** 31, 0, 1, 2, 3, 5, 7, 11, 13, 17, 19, 23, 29,
+                 31, 37, 123_456_789, 987_654_321, 2 ** 30, 65_537]
+
+
+def _sampler_case(gen, rows, V, dtype):
+    """Logits of std 3, and temperatures 0, 0.7 and 1.0 in turn."""
+    logits = (torch.randn(rows, V, generator=gen, device="cuda") * 3).to(dtype)
+    temps = torch.tensor([0.0, 0.7, 1.0], device="cuda").repeat(rows // 3 + 1)[:rows]
+    return logits, temps.contiguous()
+
+
+def _keys(seed, rows, form):
+    """A key in each of the forms the engine passes: one on the host (prefill,
+    forks, the eager loop), one on the card (the decode graph), one a row on
+    the card (the speculative verify's fold_in keys) or on the host."""
+    key = prng.split(prng.prng_key(seed))[1]
+    if form == "host":
+        return key
+    if form == "card":
+        return key.cuda()
+    per_row = prng.fold_in(key, torch.arange(rows) * (1 << 20) + 40)
+    return per_row.cuda() if form == "rows on the card" else per_row
+
+
+@pytest.mark.parametrize("form", ["host", "card", "rows on the card", "rows on the host"])
+@pytest.mark.parametrize("rows,V,dtype", [
+    (128, 98304, torch.bfloat16), (32, 131072, torch.bfloat16),  # the serving cells' steps
+    (7, 1000, torch.float32), (5, 151936, torch.float32),
+    (9, 1001, torch.bfloat16), (4, 37, torch.float32),  # rows not 16-byte aligned
+])
+def test_sampler_kernel_matches_eager_chain(gen, rows, V, dtype, form):
+    logits, temps = _sampler_case(gen, rows, V, dtype)
+    seeds = SAMPLER_SEEDS if rows * V < 2 ** 22 else SAMPLER_SEEDS[:6]
+    before = sampling.launches["gumbel_argmax"]
+    for seed in seeds:
+        key = _keys(seed, rows, form)
+        got = sampling.sample(logits, temps, key)
+        assert got.dtype == torch.int32 and got.device == logits.device
+        assert torch.equal(got, sampling.sample_plain(logits, temps, key)), seed
+        # the plain form over scaled logits, against prng.categorical on the card
+        scaled = logits.float() / 0.7
+        drawn = sampling.gumbel_argmax(scaled, key)
+        assert torch.equal(drawn.long(), prng.categorical(key, scaled)), seed
+    assert sampling.launches["gumbel_argmax"] == before + 2 * len(seeds)
+
+
+def test_sampler_kernel_matches_eager_chain_at_twenty_seeds_on_the_cell_shape(gen):
+    """grpo-long's step, 128 x 98,304 bf16, with its key on the card, at 20 seeds."""
+    logits, temps = _sampler_case(gen, 128, 98304, torch.bfloat16)
+    for seed in SAMPLER_SEEDS:
+        key = _keys(seed, 128, "card")
+        assert torch.equal(sampling.sample(logits, temps, key),
+                           sampling.sample_plain(logits, temps, key)), seed
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampler_kernel_edge_rows(gen, dtype):
+    """Rows of one value everywhere (the first index wins the greedy
+    argmax), rows with a NaN (NaN wins both argmaxes, as in torch.argmax),
+    and rows filtered to -inf but one column, across block boundaries."""
+    rows, V = 12, 5000
+    logits, temps = _sampler_case(gen, rows, V, dtype)
+    logits[0:3] = 1.5
+    logits[3, 4321] = float("nan")
+    logits[4, 17] = float("nan")
+    logits[4, 2100] = float("nan")
+    logits[5, 2047] = float("nan")
+    logits[6:9] = float("-inf")
+    logits[6, 0] = 2.0
+    logits[7, 2048] = -3.0
+    logits[8, V - 1] = 0.0
+    for seed in SAMPLER_SEEDS:
+        for form in ("host", "card", "rows on the card"):
+            key = _keys(seed, rows, form)
+            got = sampling.sample(logits, temps, key)
+            assert torch.equal(got, sampling.sample_plain(logits, temps, key)), (seed, form)
+            assert got[0].item() == 0  # greedy over equal logits
+            assert got[3:6].tolist() == [4321, 17, 2047]
+            assert got[6:9].tolist() == [0, 2048, V - 1]
+
+
+def test_sampler_refuses_what_it_does_not_take(gen):
+    logits, temps = _sampler_case(gen, 4, 64, torch.float32)
+    key = _keys(0, 4, "card")
+    for bad in (logits.half(), logits[:, ::2], logits[None]):
+        with pytest.raises(ValueError):
+            sampling.sample(bad, temps, key)
+    with pytest.raises(ValueError):
+        sampling.sample(logits, temps.cpu(), key)
+    with pytest.raises(ValueError):
+        sampling.sample(logits, temps, key.to(torch.int32))
+
+
+def _count_samples(engine):
+    """Wrap ``engine._sample``: the list returned grows by one at each call
+    made outside a graph capture."""
+    calls, sample = [], engine._sample
+
+    def counted(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append(1)
+        return sample(*args, **kw)
+
+    engine._sample = counted
+    return calls
+
+
+@pytest.mark.parametrize("vocab", [64, 300])
+def test_decode_graph_sampler_matches_the_eager_chain(gen, vocab):
+    """The graph engine, whose every draw is the sampler kernel, against the
+    eager loop drawing through the eager int64 chain on the card: equal
+    tokens and state. ``n_kernel_samples`` counts each eager sampling call
+    and each replay; the eager chain's engine counts none."""
+    graph, eager = _graph_pair(vocab, do_sample=True, temperature=0.7, seed=2 ** 31 - 7)
+    eager._sample = lambda logits, temps, top_ps, key: sampling.sample_plain(
+        logits.contiguous(), temps, key)
+    calls = _count_samples(graph)
+    prompts = _graph_prompts(vocab)
+    got = _serve_pair(graph, prompts, group=True)
+    want = _serve_pair(eager, prompts, group=True)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    for name in ("length", "active", "remaining", "tokens", "k", "v"):
+        assert torch.equal(graph.state[name], eager.state[name]), name
+    assert graph.n_decode_graph_steps == graph.n_decode_steps > 0
+    assert graph.n_kernel_samples == len(calls) + graph.n_decode_graph_steps
+    assert eager.n_kernel_samples == 0
+
+
+@pytest.mark.parametrize("filters", [{}, {"top_k": 40}])
+def test_sampled_speculative_engine_card_matches_cpu(gen, filters):
+    """A tiny float32 model served with speculative_k=2 and do_sample=True on
+    the card and on the CPU: equal tokens. On the card the verify draws each
+    (slot, position) row with its fold_in key through the sampler kernel
+    (with top-k: its plain form after the eager filter); on the CPU through
+    the int64 twin."""
+    from multimeditron_torch.models.llama import LlamaConfig
+    from multimeditron_torch.models.multimodal import MultimodalConfig, MultimodalModel
+    from multimeditron_torch.serve.engine import EngineConfig, ServingEngine
+
+    cfg = MultimodalConfig(llm=LlamaConfig(vocab_size=300, hidden_size=256,
+                                           intermediate_size=512, num_layers=2, num_heads=4,
+                                           num_kv_heads=2, dtype=torch.float32),
+                           eos_token_idx=1)  # head dim 64
+    cpu = MultimodalModel(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = MultimodalModel(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    batches = []
+    for n in (30, 12, 50):
+        ids = rng.integers(2, 300, (1, n)).astype(np.int32)
+        batches.append({"input_ids": ids, "attention_mask": np.ones_like(ids)})
+    ecfg = dict(max_slots=3, max_seq_len=96, prefill_buckets=(16, 32, 64), page_size=16,
+                max_new_tokens=16, do_sample=True, temperature=0.7, seed=2 ** 31 - 3,
+                speculative_k=2, **filters)
+    before = sampling.launches["gumbel_argmax"]
+    eng = ServingEngine(card, EngineConfig(**ecfg))
+    got = eng.generate(batches)
+    launched = sampling.launches["gumbel_argmax"] - before
+    want = ServingEngine(cpu, EngineConfig(**ecfg)).generate(batches)
+    assert got == want
+    assert eng.spec_verify_steps > 0
+    assert launched == eng.n_kernel_samples >= eng.spec_verify_steps
