@@ -1535,7 +1535,7 @@ def run_full_width(model: MultimodalModel, tower: str = "bf16", int8_llm: bool =
     engine = ServingEngine(model, EngineConfig(
         max_slots=8, max_seq_len=640, prefill_buckets=(512,), page_size=128,
         decode_chunk=8, temperature=0.7, **llm_cfg))
-    log(f"  engine: {engine.num_pages} pages, KV pool "
+    log(f"  engine: {engine.kv.num_pages} pages, KV pool "
         f"{2 * engine.state['k'].numel() * engine.state['k'].element_size() / 1e9:.3f} GB")
     vocab, n_req = model.config.llm.vocab_size, 8
     rng = np.random.default_rng(0)
@@ -1690,7 +1690,7 @@ def run_spec_full_width(model: MultimodalModel, int8_llm: bool = False) -> dict:
     reqs += engine.submit_group(group_prompt, 4, max_new_tokens=64)
     reqs.append(engine.submit(long_prompt, max_new_tokens=64))
     engine.step()  # admits all eight: the group's prompt pages are shared 4 ways
-    shared = int(engine.page_ref.max())
+    shared = int(engine.kv.page_ref.max())
     engine.run()
     wall = time.time() - t0
     counts = launch_counts(SPEC_SERVING)

@@ -50,16 +50,8 @@ def sample_tokens(
     token that crosses ``top_p``), drawn with one threefry ``key``."""
     if not do_sample:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits.float() / max(float(temperature), 1e-6)
-    if top_k is not None and top_k > 0:
-        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, -torch.inf, logits)
-    if top_p is not None and top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-        cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
-        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = torch.where(logits < cutoff, -torch.inf, logits)
+    logits = sampling.filter_logits(logits.float() / max(float(temperature), 1e-6),
+                                    top_k, top_p)
     return sampling.gumbel_argmax(logits.contiguous(), key)
 
 

@@ -5,8 +5,9 @@ key and returns one int32 token a row, as ``ServingEngine._sample`` composes
 it without top-k or top-p: the greedy argmax of the float32 logits where the
 temperature is at most 1e-6, else ``prng.categorical`` of the logits over
 ``max(t, 1e-6)``. :func:`gumbel_argmax` is ``prng.categorical`` itself: the
-argmax of logits + Gumbel noise, for logits already scaled (and filtered);
-the engine's filtered draws and ``generation.sample_tokens`` call it.
+argmax of logits + Gumbel noise, for logits already scaled (and filtered by
+:func:`filter_logits`, the eager top-k / top-p thresholds); the engine's
+filtered draws and ``generation.sample_tokens`` call both.
 
 A CUDA tensor runs ``csrc/gumbel_argmax.cu`` (one pass over the logits,
 bf16 or float32, then one small launch that reduces each row's blocks; no
@@ -23,6 +24,8 @@ replay draws with whatever its static key tensor holds.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Union
 
 import torch
 
@@ -44,6 +47,25 @@ def sample_plain(logits: torch.Tensor, temps: torch.Tensor, key: torch.Tensor) -
     scaled = logits / torch.clamp(temps, min=MIN_TEMP)[:, None]
     sampled = prng.categorical(key, scaled).to(torch.int32)
     return torch.where(temps > MIN_TEMP, sampled, greedy)
+
+
+def filter_logits(scaled: torch.Tensor, top_k: Optional[int],
+                  top_p: Union[float, torch.Tensor, None]) -> torch.Tensor:
+    """(n, V) logits over the temperature -> the same with -inf below the
+    top-k threshold (``top_k`` None or 0: none), then below the nucleus
+    cutoff (inclusive of the token that crosses ``top_p``): ``top_p`` is one
+    float for every row (None or 1.0: no nucleus) or an (n,) tensor."""
+    if top_k is not None and top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled < kth, -torch.inf, scaled)
+    if isinstance(top_p, torch.Tensor) or (top_p is not None and top_p < 1.0):
+        bound = top_p[:, None] if isinstance(top_p, torch.Tensor) else top_p
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = (cum < bound).sum(dim=-1, keepdim=True).clamp(max=scaled.shape[-1] - 1)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        scaled = torch.where(scaled < cutoff, -torch.inf, scaled)
+    return scaled
 
 
 def _c_int(word: int) -> int:

@@ -1,83 +1,67 @@
-"""Continuous-batching serving engine, paged and slab KV modes.
+"""Continuous-batching serving engine.
 
-Counterpart of ``multimeditron_tpu/serve/engine.py``. ``kv_mode="paged"``
-(the default):
+Counterpart of ``multimeditron_tpu/serve/engine.py``. The engine schedules
+a fixed pool of SLOTS; the KV layout (``serve/kv.py``, from ``kv_mode``:
+``PagedKV``, the default, a refcounted pool of pages and a per-chunk decode
+ring; ``SlabKV``, one contiguous row a slot, as the JAX engine's non-paged
+branches) owns the cache, its allocator, its writes and what admission may
+take. The engine runs:
 
-- a fixed pool of SLOTS and a global pool of KV PAGES, with per-slot page
-  tables; page 0 is the trash page. Requests reserve pages for prompt +
-  decode budget at admission and queue (FIFO) while the pool is exhausted.
-  Pages are refcounted: a forked group shares its prompt's full pages;
 - batched PREFILL of same-signature requests (bucketed prompt length +
   modality shapes, group size capped to a power of two, or to
   ``prefill_group_cap`` when admission is staggered): modality encode and
-  splice, a causal forward into a local contiguous cache, then one scatter of
-  bucket-shaped pages into the pool. Prompts longer than the largest bucket
-  prefill in bucket-sized chunks into a persistent slab, folded into the pool
-  once;
-- FORKED GROUPS (``submit_group(n > 1)``, the GRPO G-per-prompt layout): the
-  prompt prefills once; siblings share its full pages, copy its partial tail
-  page and sample their first tokens from its last logits;
-- chunked DECODE: ``decode_chunk`` single-token steps write into a per-chunk
-  ring and attend over pages + ring (kernel K4); slots deactivate in the
-  chunk on EOS, exhausted budget or a full cache; at the end of the chunk the
-  ring folds into the pages (kernel K5);
+  splice, a causal forward into a local contiguous cache, then the layout's
+  write. Prompts longer than the largest bucket prefill in bucket-sized
+  chunks. Requests queue (FIFO) while the layout cannot hold the head;
+- FORKED GROUPS (``submit_group(n > 1)`` over a layout that forks, the GRPO
+  G-per-prompt layout): the prompt prefills once; siblings share its full
+  pages, copy its partial tail page and sample their first tokens from its
+  last logits;
+- chunked DECODE: ``decode_chunk`` single-token steps (paged: K4 over pages
+  + ring, the ring folded at the chunk's end, K5; slab: K1); slots
+  deactivate in the chunk on EOS, exhausted budget or a full cache;
 - SPECULATIVE decoding (``speculative_k = k > 0``): each step drafts k tokens
-  per slot from its token history (n-gram prompt lookup), runs the (k+1)-token
-  block through the decoder (kernel K6), commits the longest agreeing prefix
-  plus one bonus token and folds the ring (K5). Greedy output is exactly the
-  plain greedy decode; sampled output is position-keyed, so a function of
-  (prompt, seed) independent of k;
-- per-slot temperature / top-k / top-p sampling on the device, with JAX's
-  threefry keys (``serve/prng.py``): every sampled token equals the JAX
-  engine's for the same logits. On the card the draw (hash, Gumbel noise,
-  temperature, greedy and sampled argmax) is one kernel
-  (``ops/sampling.py``), after the eager top-k / top-p filter when either
-  is on; ``n_kernel_samples`` counts the sampling calls that ran it, graph
-  replays included;
-- the INT8 LLM (``quantize_llm``): the engine serves a quantised copy of the
-  model's decoder (``models/llama_quant.py``; W8A16 through kernel K9, fused
-  qkv and gate-up), leaving the caller's model as it is; with
-  ``w8a8_prefill`` every prefill call (group prefill and each chunk of a
-  chunked prompt) runs W8A8 once its padded rows reach 256, while decode
-  and verify stay W8A16.
-
-``kv_mode="slab"`` keeps one contiguous cache row per slot, (L, slots, Hkv,
-max_seq_len, Dh), and follows the JAX engine's non-paged branches: a prefill
-copies each request's local cache into its slot's row; a decode step writes
-at each slot's length and attends over the masked row (kernel K1 on the
-card), with no ring and no fold; a verify block runs as a prefill at
-per-slot causal offsets (plain attention); a long prompt prefills chunk by
-chunk straight into its slot's row; admission needs only a free slot, and
-``submit_group`` queues n independent requests. Sampling, speculative
-decoding and the int8 LLM work as in paged mode.
+  per slot from its token history (n-gram prompt lookup), verifies the
+  (k+1)-token block (paged: K6) and commits the longest agreeing prefix plus
+  one bonus token. Greedy output is exactly the plain greedy decode; sampled
+  output is position-keyed, so a function of (prompt, seed) independent of k;
+- per-slot temperature / top-k / top-p sampling with JAX's threefry keys
+  (``serve/prng.py``): every sampled token equals the JAX engine's for the
+  same logits. On the card the draw is one kernel (``ops/sampling.py``),
+  after the eager top-k / top-p filter when either is on;
+  ``n_kernel_samples`` counts the sampling calls that ran it, replays too;
+- the INT8 LLM (``quantize_llm``): a quantised copy of the model's decoder
+  (``models/llama_quant.py``; W8A16 through kernel K9, fused qkv and
+  gate-up); with ``w8a8_prefill`` every prefill call runs W8A8 once its
+  padded rows reach 256, while decode and verify stay W8A16.
 
 Scheduling state lives on the engine's device (the model's device); the host
 keeps mirrors for admission, page allocation and finish bookkeeping, and
-downloads one token matrix per chunk. Each live decode or verify step costs
-one host sync (``active.any()``), where the JAX loop skips dead steps
-in-graph. A plain decode step is one function over the state
-(``_decode_step``: embedding, decoder, lm_head, sampling, state update, in
-place). On the card with paged KV and no speculation it is captured once,
-at the first live step, as a CUDA graph and replayed for every live step
-(``n_decode_graph_steps`` counts the replays); elsewhere it runs eagerly.
+downloads one token block per chunk. One chunk loop (``_decode_chunk``)
+runs plain and verify steps, and one replay (``_replay``) advances the host
+mirrors from either. Each live step costs one host sync (``active.any()``),
+where the JAX loop skips dead steps in-graph. A step is one function over
+the state, in place: ``_decode_step`` (embedding, decoder, lm_head,
+sampling, state update) or ``_verify_step``. On the card, paged and without
+speculation, the plain step is captured once, at the first live step, as a
+CUDA graph and replayed for every live step (``n_decode_graph_steps``
+counts the replays); elsewhere steps run eagerly.
 
-A decoder with routed experts (``models/moe.py``) counts on the device, in
-each expert layer's call, the experts that received a token and the
-assignments; the counts of a decode chunk and of a prefill call travel home
-in the same ``.cpu()`` as its tokens and land in the engine's
-``n_experts_touched`` / ``n_expert_assignments`` and on the
-``decode.chunk`` and ``engine.prefill`` spans (``experts_touched``,
-``expert_assignments``). A decoder with sliding windows or experts serves
-through the paged plain path only.
+A decoder with routed experts (``models/moe.py``) counts on the device the
+experts that received a token and the assignments; the counts of a decode
+chunk and of a prefill call come home in its tokens' ``.cpu()`` and land in
+``n_experts_touched`` / ``n_expert_assignments`` and on the ``decode.chunk``
+and ``engine.prefill`` spans (``experts_touched``, ``expert_assignments``).
+A decoder with sliding windows or experts serves through the paged plain
+path only.
 
-Each phase of a plain step (admission, each prefill call and its parts,
-forks, the decode chunk, each decode step and its parts, the fold, the
+Each phase of a step (admission, each prefill call and its parts, forks,
+the decode chunk, each decode or verify step and its parts, the fold, the
 readback and the host-mirror replay) records a span in
 ``profiling.tracer``, with counters from the host mirrors; a replayed step
 records ``decode.forward`` around the replay (sampling included) and no
-``decode.sample``, and its ``decode.step`` carries ``graph``. The
-speculative path records only ``engine.step``. The tracer is off unless
-enabled.
+``decode.sample``, and its ``decode.step`` carries ``graph``. The tracer is
+off unless enabled.
 
 Not ported yet (``NotImplementedError``): tensor parallelism or an
 external mesh, and ``attn_impl``.
@@ -92,20 +76,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multimeditron_torch.models.llama import (
-    init_kv_cache,
-    init_paged_kv_cache,
-    refuse_windows_or_experts,
-)
+from multimeditron_torch.models.llama import init_kv_cache, refuse_windows_or_experts
 from multimeditron_torch.models.llama_quant import is_quantized, quantize_llama
 from multimeditron_torch.models.multimodal import MultimodalModel, mm_item_count
 from multimeditron_torch.ops import sampling
-from multimeditron_torch.ops.paged_attention import fold_ring_into_pages
 from multimeditron_torch.profiling import tracer
 from multimeditron_torch.serve import prng
+from multimeditron_torch.serve.kv import PagedKV, SlabKV
 
-PAGED_CACHE_KEYS = ("k", "v", "ring_k", "ring_v", "length", "page_table", "pages_length")
-SLAB_CACHE_KEYS = ("k", "v", "length")
 W8A8_MIN_ROWS = 256  # the JAX engine's prefill row gate
 
 
@@ -182,18 +160,15 @@ class ServingEngine:
         _refuse_unported(cfg, mesh)
         if cfg.w8a8_prefill and not cfg.quantize_llm:
             raise ValueError("w8a8_prefill requires quantize_llm")
-        if cfg.kv_mode not in ("paged", "slab"):
+        layout = {"paged": PagedKV, "slab": SlabKV}.get(cfg.kv_mode)
+        if layout is None:
             raise ValueError(f"kv_mode must be paged|slab, got {cfg.kv_mode!r}")
         llm_cfg = model.config.llm
-        if cfg.kv_mode == "slab":
-            refuse_windows_or_experts(llm_cfg, "slab decode (kernel K1 has no window)")
         if cfg.speculative_k > 0:
             refuse_windows_or_experts(llm_cfg, "speculative decoding (the verify block, "
                                       "kernel K6, has no window)")
         if cfg.quantize_llm:
             refuse_windows_or_experts(llm_cfg, "quantize_llm (no int8 experts)")
-        self.paged = cfg.kv_mode == "paged"
-        self.cache_keys = PAGED_CACHE_KEYS if self.paged else SLAB_CACHE_KEYS
         self.model = model.eval()
         self.cfg = cfg
         self.device = next(model.parameters()).device
@@ -202,32 +177,9 @@ class ServingEngine:
         self.llm = model.llm
         if cfg.quantize_llm and not is_quantized(model.llm):
             self.llm = quantize_llama(model.llm, fuse=True)
-        llm = model.config.llm
         self.eos_id = model.config.eos_token_idx
         self.decode_chunk = max(1, cfg.decode_chunk)
         self.spec_k = max(0, cfg.speculative_k)
-        if self.paged:
-            P = cfg.page_size
-            for b in cfg.prefill_buckets:
-                if b >= P and b % P != 0:
-                    raise ValueError(f"prefill bucket {b} must divide into pages of {P}")
-            # a verify step writes one (k+1)-token block into the ring, folded
-            # after every step; plain decode keeps a chunk's rows
-            ring_size = (max(self.decode_chunk, self.spec_k + 2) if self.spec_k
-                         else self.decode_chunk)
-            if ring_size > P:
-                raise ValueError(f"ring ({ring_size} rows) must fit one page ({P})")
-            self.page_size = P
-            self.pages_max = -(-cfg.max_seq_len // P)
-            n_pages = cfg.num_pages or (1 + cfg.max_slots * self.pages_max)
-            self.num_pages = n_pages
-
-            # Host-side allocator; page 0 = trash (never allocated). Pages are
-            # refcounted: a forked group's slots share its full prompt pages.
-            self.page_table = np.zeros((cfg.max_slots, self.pages_max), np.int32)
-            self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
-            self.page_ref = np.zeros((n_pages,), np.int32)
-            self.slot_num_pages = np.zeros((cfg.max_slots,), np.int32)
         # Host mirrors of the scheduling state, advanced from the downloaded
         # tokens alone.
         self.lengths = np.zeros((cfg.max_slots,), np.int32)
@@ -238,18 +190,19 @@ class ServingEngine:
 
         dev, B = self.device, cfg.max_slots
         with torch.inference_mode():
-            if self.paged:
-                cache = init_paged_kv_cache(llm, n_pages, P, self.pages_max, B,
-                                            ring_size=ring_size, device=dev)
-            else:
-                cache = init_kv_cache(llm, B, cfg.max_seq_len, device=dev)
+            # a verify step writes one (k+1)-token block into the ring, folded
+            # after every step; plain decode keeps a chunk's rows
+            ring_rows = (max(self.decode_chunk, self.spec_k + 2) if self.spec_k
+                         else self.decode_chunk)
+            self.kv = layout(llm_cfg, cfg, ring_rows, dev)
             ints = dict(dtype=torch.int32, device=dev)
             # Device-resident scheduling state, updated in place by prefill
-            # and decode; "remaining" is the token budget left per slot.
-            # "seed" seeds the next plain decode chunk's keys (a host int:
-            # keys are derived on the host, random bits on the device).
+            # and decode (the layout's cache tensors under their own keys);
+            # "remaining" is the token budget left per slot. "seed" seeds the
+            # next plain decode chunk's keys (a host int: keys are derived on
+            # the host, random bits on the device).
             self.state: Dict[str, Any] = {
-                **cache,
+                **self.kv.cache,
                 "tokens": torch.zeros((B,), **ints),
                 "active": torch.zeros((B,), dtype=torch.bool, device=dev),
                 "remaining": torch.zeros((B,), **ints),
@@ -266,7 +219,6 @@ class ServingEngine:
         self._next_id = 0
         self._seed_ctr = 0  # prefill and fork seeds, as the JAX _next_seed
         self._last_prefill_logits: Optional[torch.Tensor] = None
-        self._chunk_slab: Optional[Dict[str, torch.Tensor]] = None
         # work counters: prefill calls (chunks of a long prompt count one
         # each), live decode steps, decode chunks, and the speculative
         # verify steps, slot-steps and emitted tokens
@@ -288,99 +240,20 @@ class ServingEngine:
         self._decode_graph = None
         self._graph_samples = 0  # sampler kernel launches in one replay of the graph
         self._graph_key = None
-        if self.device.type == "cuda" and self.paged and not self.spec_k:
+        if self.device.type == "cuda" and self.kv.graph and not self.spec_k:
             self._graph_key = torch.zeros((2,), dtype=torch.int64, device=dev)
-
-    # ------------------------------------------------------------------
-    # Page allocator
-    # ------------------------------------------------------------------
-    def _required_pages(self, req: Request) -> int:
-        """Pages to reserve: prompt + full decode budget, so the decode loop
-        never allocates (writes past the reservation land on the trash page)."""
-        plen = int(np.asarray(req.batch["attention_mask"]).sum())
-        total = min(plen + req.max_new_tokens, self.cfg.max_seq_len)
-        return -(-total // self.page_size)
-
-    def _alloc_pages(self, n: int) -> List[int]:
-        ids = [self.free_pages.pop() for _ in range(n)]
-        for p in ids:
-            self.page_ref[p] = 1
-        return ids
-
-    def _reserve_pages(self, req: Request, slot: int) -> None:
-        need = self._required_pages(req)
-        ids = self._alloc_pages(need)
-        self.page_table[slot, :] = 0
-        self.page_table[slot, :need] = ids
-        self.slot_num_pages[slot] = need
-
-    def _reserve_fork_pages(self, req: Request, slot: int, parent_slot: int,
-                            plen: int) -> int:
-        """Fork ``slot`` off ``parent_slot``'s prompt: share the parent's
-        full prompt pages (refcount + 1), allocate its own pages for the rest
-        of [plen, plen + budget). Returns the parent's partial page to copy
-        (0: the prompt is page-aligned, nothing to copy)."""
-        P = self.page_size
-        total = min(plen + req.max_new_tokens, self.cfg.max_seq_len)
-        need = -(-total // P)
-        n_full = min(plen // P, need)
-        shared = [int(p) for p in self.page_table[parent_slot, :n_full]]
-        for p in shared:
-            self.page_ref[p] += 1
-        own = self._alloc_pages(need - n_full)
-        self.page_table[slot, :] = 0
-        self.page_table[slot, :need] = shared + own
-        self.slot_num_pages[slot] = need
-        if plen % P != 0 and need > n_full:
-            return int(self.page_table[parent_slot, n_full])
-        return 0
-
-    def _release_pages(self, slot: int) -> None:
-        used = int(self.slot_num_pages[slot])
-        for p in self.page_table[slot, :used]:
-            p = int(p)
-            self.page_ref[p] -= 1
-            if self.page_ref[p] == 0:
-                self.free_pages.append(p)
-        self.page_table[slot, :] = 0
-        self.slot_num_pages[slot] = 0
-
-    def _bucket_page_ids(self, slots: List[int], bucket: int) -> np.ndarray:
-        """Pool page ids receiving each request's bucket-shaped prefill KV;
-        bucket pages beyond a slot's reservation map to the trash page."""
-        bp = max(1, bucket // self.page_size)
-        ids = np.zeros((len(slots) * bp,), np.int32)
-        for j, slot in enumerate(slots):
-            used = int(self.slot_num_pages[slot])
-            ids[j * bp: j * bp + min(bp, used)] = self.page_table[slot, :min(bp, used)]
-        return ids
 
     # ------------------------------------------------------------------
     # Sampling
     # ------------------------------------------------------------------
-    def _filter_logits(self, scaled: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
-        """Engine-wide top-k, then per-slot top-p (inclusive of the token
-        that crosses the threshold)."""
-        cfg = self.cfg
-        if cfg.top_k and cfg.top_k > 0:
-            kth = torch.topk(scaled, cfg.top_k, dim=-1).values[..., -1:]
-            scaled = torch.where(scaled < kth, -torch.inf, scaled)
-        if cfg.top_p < 1.0:
-            V = scaled.shape[-1]
-            sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
-            cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-            cutoff_idx = (cum < top_ps[:, None]).sum(dim=-1, keepdim=True)
-            cutoff = torch.gather(sorted_logits, -1, cutoff_idx.clamp(max=V - 1))
-            scaled = torch.where(scaled < cutoff, -torch.inf, scaled)
-        return scaled
-
     def _sample(self, logits: torch.Tensor, temps: torch.Tensor, top_ps: torch.Tensor,
                 key: Optional[torch.Tensor]) -> torch.Tensor:
         """(n, V) logits -> (n,) int32 tokens; temperature 0 is greedy.
         ``key``: one key for all rows, or one per row (``prng.categorical``);
         unused when the engine does not sample. Without top-k or top-p the
-        whole draw is ``sampling.sample``; with either, the filter runs
-        eagerly and ``sampling.gumbel_argmax`` draws from what it leaves."""
+        whole draw is ``sampling.sample``; with either, engine-wide top-k and
+        per-slot top-p (``sampling.filter_logits``) run eagerly and
+        ``sampling.gumbel_argmax`` draws from what they leave."""
         cfg = self.cfg
         if not cfg.do_sample:
             return torch.argmax(logits.float(), dim=-1).to(torch.int32)
@@ -390,7 +263,8 @@ class ServingEngine:
         else:
             logits = logits.float()
             greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-            scaled = self._filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None], top_ps)
+            scaled = sampling.filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None],
+                                            cfg.top_k, top_ps if cfg.top_p < 1.0 else None)
             tokens = torch.where(temps > 1e-6, sampling.gumbel_argmax(scaled, key), greedy)
         self.n_kernel_samples += sampling.launches["gumbel_argmax"] > launched
         return tokens
@@ -410,11 +284,12 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Prefill
     # ------------------------------------------------------------------
-    def _set_slots(self, slot_ids, lengths, first, budgets, temps, top_ps, page_rows,
+    def _set_slots(self, slot_ids, lengths, first, budgets, temps, top_ps, rows,
                    history_rows=None) -> None:
-        """Write admitted slots' scheduling rows; a slot starts active unless
-        its first token already ends it. ``history_rows`` (n, width) are the
-        committed tokens before position ``lengths`` (speculative engines)."""
+        """Write admitted slots' scheduling rows and the layout's ``rows``
+        (``kv.rows``); a slot starts active unless its first token already
+        ends it. ``history_rows`` (n, width) are the committed tokens before
+        position ``lengths`` (speculative engines)."""
         st = self.state
         st["length"][slot_ids] = lengths
         st["tokens"][slot_ids] = first
@@ -422,9 +297,7 @@ class ServingEngine:
         st["remaining"][slot_ids] = budgets - 1
         st["temps"][slot_ids] = temps
         st["top_ps"][slot_ids] = top_ps
-        if self.paged:
-            st["pages_length"][slot_ids] = lengths
-            st["page_table"][slot_ids] = page_rows
+        self.kv.set_rows(slot_ids, lengths, rows)
         if "history" in st:
             hist = st["history"]
             width = min(history_rows.shape[1], hist.shape[1])
@@ -432,11 +305,10 @@ class ServingEngine:
             hist[slot_ids, lengths.long()] = first
 
     def _prefill(self, bucket: int, input_ids, attention_mask, mm_inputs, dest,
-                 slot_ids, page_rows, temps, top_ps, budgets, seed: int):
+                 slot_ids, rows, temps, top_ps, budgets, seed: int):
         """Encode + splice + causal prefill of n requests into a local cache,
-        then copy it into the engine's cache (paged: one scatter of the
-        written pages into the pool at page ids ``dest``; slab: each
-        request's row into its slot) and set the admitted slots' scheduling
+        then copy it into the engine's cache (``kv.write_prefill``; ``dest``
+        from ``kv.prefill_dest``) and set the admitted slots' scheduling
         rows. Returns (lengths, first_tokens, last_logits); forks sample from
         the last logits without re-running the prompt."""
         llm_cfg = self.model.config.llm
@@ -449,32 +321,13 @@ class ServingEngine:
                                      kv_cache=local, prefill=True, return_hidden=True,
                                      w8a8_min_rows=self._w8a8_gate(n * bucket))
         lengths = attention_mask.sum(dim=-1).to(torch.int32)
-        L, _, Hkv, _, Dh = local["k"].shape
         with tracer.span("prefill.cache_write"):
-            for name in ("k", "v"):
-                if not self.paged:
-                    # a bucket can be wider than the slot's row: its prefix is
-                    # copied (the prompt itself is shorter than max_seq_len)
-                    width = min(bucket, st[name].shape[3])
-                    st[name][:, slot_ids, :, :width] = local[name][:, :, :, :width]
-                    continue
-                P = self.page_size
-                if bucket >= P:
-                    bp = bucket // P
-                    pages = (local[name].reshape(L, n, Hkv, bp, P, Dh)
-                             .permute(0, 2, 1, 3, 4, 5).reshape(L, Hkv, n * bp, P, Dh))
-                    # unused bucket pages all go to trash page 0: duplicate
-                    # targets there are harmless (nothing reads page 0 as data)
-                    st[name].index_copy_(2, dest, pages)
-                else:
-                    # a bucket smaller than a page fills the first rows of one page
-                    st[name][:, :, dest, :bucket] = local[name].permute(0, 2, 1, 3, 4)
+            self.kv.write_prefill(local, bucket, slot_ids, dest)
         with tracer.span("prefill.sample"):
             last_h = hidden[torch.arange(n, device=self.device), lengths.long() - 1]
             last_logits = self.llm.lm_head_logits(last_h)
             first = self._sample(last_logits, temps, top_ps, prng.prng_key(seed))
-        self._set_slots(slot_ids, lengths, first, budgets, temps, top_ps, page_rows,
-                        input_ids)
+        self._set_slots(slot_ids, lengths, first, budgets, temps, top_ps, rows, input_ids)
         return lengths, first, last_logits
 
     def _chunk_mm(self, mm, start: int, length: int, bucket: int):
@@ -497,33 +350,17 @@ class ServingEngine:
             }
         return out
 
-    def _get_chunk_slab(self) -> Dict[str, torch.Tensor]:
-        """Persistent (L, 1, Hkv, pages_max * P, Dh) slab reused by every
-        chunked prefill (a chunk attends only positions its prompt wrote)."""
-        if self._chunk_slab is None:
-            llm = self.model.config.llm
-            shape = (llm.num_layers, 1, llm.num_kv_heads, self.pages_max * self.page_size,
-                     llm.head_dim_)
-            kw = dict(dtype=self.state["k"].dtype, device=self.device)
-            self._chunk_slab = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
-        return self._chunk_slab
-
-    def _prefill_chunked(self, req: Request, slot: int, reserve: bool = True) -> None:
+    def _prefill_chunked(self, req: Request, slot: int) -> None:
         """Prefill a prompt longer than the largest bucket in bucket-sized
-        causal chunks at offsets ``start``: paged, into the persistent slab,
-        then fold the slab into the slot's pages with one scatter; slab,
-        straight into the slot's own row of the cache."""
+        causal chunks at offsets ``start`` into the layout's chunk target
+        (paged: a persistent slab, committed to the slot's pages with one
+        scatter after the last chunk; slab: the slot's own row)."""
         ids = np.asarray(req.batch["input_ids"])[0]
         plen = int(np.asarray(req.batch["attention_mask"]).sum())
         ids = ids[:plen]
         W = self.cfg.prefill_buckets[-1]
         mm = req.batch.get("mm_inputs") or {}
-        if self.paged:
-            if reserve:
-                self._reserve_pages(req, slot)
-            slab = self._get_chunk_slab()
-        else:
-            slab = {name: self.state[name][:, slot:slot + 1] for name in ("k", "v")}
+        slab = self.kv.chunk_target(slot)
         dev, llm = self.device, self.llm
         temps = torch.tensor([req.temperature], dtype=torch.float32, device=dev)
         top_ps = torch.tensor([req.top_p], dtype=torch.float32, device=dev)
@@ -546,8 +383,7 @@ class ServingEngine:
                     with tracer.span("prefill.embed"):
                         embeds = self.model.embed(torch.from_numpy(chunk_ids).to(dev),
                                                   self._chunk_mm(mm, start, c, bucket))
-                    cache = {"k": slab["k"], "v": slab["v"],
-                             "length": torch.tensor([start], dtype=torch.int32, device=dev)}
+                    cache = {**slab, "length": torch.tensor([start], dtype=torch.int32, device=dev)}
                     with tracer.span("prefill.decoder"):
                         hidden, _ = llm(inputs_embeds=embeds,
                                         attention_mask=torch.from_numpy(chunk_mask).to(dev),
@@ -560,24 +396,17 @@ class ServingEngine:
                     start += c
                     if start < plen:
                         continue
-                    # the last chunk also folds the prompt into the page pool
+                    # the last chunk also commits the prompt to the cache
                     # once and reads its first token back
                     self._last_prefill_logits = last_logits
-                    page_row = None
-                    if self.paged:
-                        with tracer.span("prefill.cache_write"):
-                            L, _, Hkv, _, Dh = slab["k"].shape
-                            dest = torch.from_numpy(
-                                self.page_table[slot].astype(np.int64)).to(dev)
-                            for name in ("k", "v"):
-                                self.state[name].index_copy_(2, dest, slab[name][:, 0].reshape(
-                                    L, Hkv, self.pages_max, self.page_size, Dh))
-                        page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
+                    with tracer.span("prefill.cache_write"):
+                        self.kv.commit_chunks(slot, slab)
+                    rows = self.kv.rows([slot])
                     self._set_slots(
                         torch.tensor([slot], device=dev),
                         torch.tensor([plen], dtype=torch.int32, device=dev), first,
                         torch.tensor([req.max_new_tokens], dtype=torch.int32, device=dev),
-                        temps, top_ps, page_row,
+                        temps, top_ps, rows,
                         torch.from_numpy(ids[None].astype(np.int32)).to(dev))
                     first, moe = self._read_back(first)
                     self._count_experts(sp, moe)
@@ -601,71 +430,6 @@ class ServingEngine:
             self.active[slot] = True
 
     # ------------------------------------------------------------------
-    # Forked groups
-    # ------------------------------------------------------------------
-    def _fork(self, fork_slots: List[int], src_page: int, dst_pages: List[int], plen: int,
-              forks: List[Request], seed: int, src_slot: int) -> torch.Tensor:
-        """Admit slots sharing a just-prefilled prompt: copy the parent's
-        partial last page into each fork's own page and sample the forks'
-        first tokens from the primary's saved last logits."""
-        st, dev = self.state, self.device
-        n = len(fork_slots)
-        if src_page:
-            dst = torch.tensor(dst_pages, dtype=torch.long, device=dev)
-            for name in ("k", "v"):
-                src = st[name][:, :, src_page:src_page + 1]
-                st[name].index_copy_(2, dst, src.expand(-1, -1, n, -1, -1).contiguous())
-        logits = self._last_prefill_logits[0].expand(n, -1)
-        temps = torch.tensor([r.temperature for r in forks], dtype=torch.float32, device=dev)
-        top_ps = torch.tensor([r.top_p for r in forks], dtype=torch.float32, device=dev)
-        budgets = torch.tensor([r.max_new_tokens for r in forks], dtype=torch.int32, device=dev)
-        first = self._sample(logits, temps, top_ps, prng.prng_key(seed))
-        history = (st["history"][src_slot:src_slot + 1].expand(n, -1).clone()
-                   if "history" in st else None)
-        self._set_slots(torch.tensor(fork_slots, device=dev),
-                        torch.full((n,), plen, dtype=torch.int32, device=dev), first, budgets,
-                        temps, top_ps, torch.from_numpy(self.page_table[fork_slots]).to(dev),
-                        history)
-        return first
-
-    def _try_admit_group(self, primary: Request, free: List[int]) -> bool:
-        """Admit a forked group (primary + siblings) atomically: one
-        prefill, then the fork. Returns False when slots or pages are short
-        (the group waits at the queue head)."""
-        forks = primary.forks
-        need_slots = 1 + len(forks)
-        if len(free) < need_slots:
-            return False
-        plen = int(np.asarray(primary.batch["attention_mask"]).sum())
-        p_need = self._required_pages(primary)
-        n_full = min(plen // self.page_size, p_need)
-        own = max(p_need - n_full, 0)
-        if p_need + len(forks) * own > len(self.free_pages):
-            return False
-        self.queue.remove(primary)
-        slots = [free.pop(0) for _ in range(need_slots)]
-        slot0, fork_slots = slots[0], slots[1:]
-        # every page is reserved first: the forks' refcounts on the shared
-        # prompt pages must exist before the primary might finish and release
-        self._reserve_pages(primary, slot0)
-        src_page = 0
-        for f, s in zip(forks, fork_slots):
-            src_page = self._reserve_fork_pages(f, s, slot0, plen) or src_page
-        if self._bucket_for(primary.batch["input_ids"].shape[1]) is None:
-            self._prefill_chunked(primary, slot0, reserve=False)
-        else:
-            self._prefill_group([primary], [slot0], self._request_signature(primary),
-                                reserve=False)
-        dst_pages = [int(self.page_table[s, n_full]) for s in fork_slots]
-        with tracer.span("engine.fork"), torch.inference_mode():
-            first = self._fork(fork_slots, src_page, dst_pages, plen, forks,
-                               self._next_seed(), slot0).cpu().numpy()
-        now = time.time()
-        for j, (req, slot) in enumerate(zip(forks, fork_slots)):
-            self._admit_on_host(req, slot, plen, int(first[j]), now)
-        return True
-
-    # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
     def _decode_step(self, key: Optional[torch.Tensor]) -> None:
@@ -681,7 +445,7 @@ class ServingEngine:
         tokens, active, length = st["tokens"], st["active"], st["length"]
         with tracer.span("decode.forward"):
             logits, new_cache = llm(inputs_embeds=llm.embed(tokens)[:, None, :],
-                                    kv_cache={k: st[k] for k in self.cache_keys})
+                                    kv_cache=self.kv.cache)
         with tracer.span("decode.sample"):
             nxt = self._sample(logits[:, 0], st["temps"], st["top_ps"], key)
             nxt = torch.where(active, nxt, eos)
@@ -700,9 +464,9 @@ class ServingEngine:
         tensors and the static key, after one eager warm-up step on the
         capture stream whose state writes are undone (the ring row it
         writes, the step writes again before any read; an expert decoder's
-        counters are restored). The graph reads
-        the decoder's parameters and the state's tensors by address:
-        weights updated in place are seen, a tensor replaced is not."""
+        counters are restored). The graph reads the decoder's parameters and
+        the state's tensors by address: weights updated in place are seen, a
+        tensor replaced is not."""
         st, dev = self.state, self.device
         names = ("tokens", "active", "remaining", "length")
         saved = [st[n].clone() for n in names]
@@ -729,57 +493,6 @@ class ServingEngine:
         self.n_kernel_samples = samples
         self._decode_graph = graph
 
-    def _decode_chunk(self, chunk: int) -> torch.Tensor:
-        """``chunk`` single-token steps over the slot pool, then (paged) the
-        ring fold. A live step runs :meth:`_decode_step`: on the card, with
-        paged KV and no speculation, as the replay of one CUDA graph (the
-        ring row is found on the device, so one graph serves every step and
-        chunk size), else eagerly. Returns the (chunk, slots) token matrix."""
-        st, dev = self.state, self.device
-        # the JAX chunk splits its key once per step, dead steps included
-        key, subs = prng.prng_key(st["seed"]), []
-        for _ in range(chunk if self.cfg.do_sample else 0):
-            key, sub = prng.split(key)
-            subs.append(sub)
-        graph = self._graph_key is not None
-        if graph and subs:
-            # the chunk's keys reach the card in one pinned copy
-            subs = torch.stack(subs).pin_memory().to(dev, non_blocking=True)
-        toks = torch.empty((chunk, self.cfg.max_slots), dtype=torch.int32, device=dev)
-        for i in range(chunk):
-            sub = subs[i] if len(subs) else None
-            with tracer.span("decode.step") as sp:
-                with tracer.span("decode.wait"):
-                    ran = bool(st["active"].any())
-                sp.set(ran=ran)
-                if ran:
-                    self.n_decode_steps += 1
-                    if not graph:
-                        self._decode_step(sub)
-                    else:
-                        sp.set(graph=True)
-                        if self._decode_graph is None:
-                            self._capture_decode_step()
-                        with tracer.span("decode.forward"):
-                            if sub is not None:
-                                self._graph_key.copy_(sub)
-                            self._decode_graph.replay()
-                        self.n_decode_graph_steps += 1
-                        self.n_kernel_samples += self._graph_samples
-                # a skipped step (every slot done) repeats the last token row
-                toks[i].copy_(st["tokens"])
-        with tracer.span("decode.fold"):
-            if self.paged:
-                # absorb the chunk's ring rows into the page pool; rows past a
-                # slot's final length are not written
-                fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
-                                     st["page_table"], st["pages_length"], chunk,
-                                     st["length"])
-                st["pages_length"].copy_(st["length"])
-            self.n_decode_chunks += 1
-        st["seed"] = _wrap_int32(st["seed"] + 1)
-        return toks
-
     def _draft(self, history: torch.Tensor, length: torch.Tensor,
                last_tok: torch.Tensor) -> torch.Tensor:
         """(B, k) n-gram drafts. Committed tokens are history[:, :length + 1]
@@ -804,17 +517,22 @@ class ServingEngine:
         cand = history.gather(1, start[:, None] + torch.arange(k, device=history.device)[None, :])
         return torch.where(found[:, None], cand, last_tok[:, None])
 
-    def _verify_step(self, cache, history, tokens, active, remaining):
+    def _verify_step(self, out: torch.Tensor) -> None:
         """One draft -> verify -> accept step over the slot pool (the JAX
-        speculative ``one_step``). Returns the new (history, tokens, active,
-        remaining) and the step's (B, k+1) tokens and emission mask."""
+        speculative ``one_step``), in place: reads and writes the state's
+        ``history``, ``tokens``, ``active``, ``remaining`` and ``length``,
+        folds the ring through the layout, and writes the step's (B, k+1)
+        tokens and emission mask into ``out[0]`` and ``out[1]``."""
         st, cfg, k = self.state, self.cfg, self.spec_k
         llm, eos, max_len = self.llm, self.eos_id, cfg.max_seq_len
-        B, Lh = history.shape
-        length = cache["length"]
+        history, tokens, active = st["history"], st["tokens"], st["active"]
+        length, remaining = st["length"], st["remaining"]
+        B = history.shape[0]
         block = torch.cat([tokens[:, None], self._draft(history, length, tokens)], dim=1)
-        # a slab cache runs the block as a prefill: causal at per-slot offsets
-        logits, new_cache = llm(inputs_embeds=llm.embed(block), kv_cache=cache, prefill=True)
+        with tracer.span("decode.forward"):
+            # a slab cache runs the block as a prefill: causal at per-slot offsets
+            logits, _ = llm(inputs_embeds=llm.embed(block), kv_cache=self.kv.cache,
+                            prefill=True)
         idx = torch.arange(k + 1, device=self.device)[None, :]
         keys = None
         if cfg.do_sample:
@@ -823,9 +541,11 @@ class ServingEngine:
             ids = (torch.arange(B, device=self.device)[:, None] * (1 << 20)
                    + length[:, None].long() + idx).reshape(-1)
             keys = prng.fold_in(prng.prng_key(_wrap_int32(cfg.seed)), ids)
-        # (B, k+1, V) logits: one row a position, each with its slot's settings
-        g = self._sample(logits.reshape(B * (k + 1), -1), st["temps"].repeat_interleave(k + 1),
-                         st["top_ps"].repeat_interleave(k + 1), keys).reshape(B, k + 1)
+        with tracer.span("decode.sample"):
+            # (B, k+1, V) logits: one row a position, each with its slot's settings
+            g = self._sample(logits.reshape(B * (k + 1), -1),
+                             st["temps"].repeat_interleave(k + 1),
+                             st["top_ps"].repeat_interleave(k + 1), keys).reshape(B, k + 1)
         # accept the longest draft prefix the verifier agrees with, plus one
         match = (block[:, 1:] == g[:, :-1]).to(torch.int32)
         a = torch.cumprod(match, dim=1).sum(dim=1)
@@ -837,52 +557,111 @@ class ServingEngine:
         emit = emit & (length[:, None] + idx <= max_len - 1) & active[:, None]
         n_emit = emit.sum(dim=1, dtype=torch.int32)
         last = g.gather(1, (n_emit.long() - 1).clamp(min=0)[:, None])[:, 0]
-        tokens = torch.where(n_emit > 0, last, tokens)
         finished_eos = (eos_hit & emit).any(dim=1)
         new_length = length + n_emit
-        remaining = remaining - n_emit
-        active = active & ~finished_eos & (remaining > 0) & (new_length < max_len)
-        # committed tokens land at length + 1 + i; the others are dropped
-        pos = torch.where(emit, length[:, None].long() + 1 + idx, Lh)
-        hist = torch.cat([history, history.new_zeros((B, 1))], dim=1)
-        history = hist.scatter_(1, pos, g)[:, :Lh]
-        if self.paged:
-            # fold every verify step: accepted rows land in their pages,
-            # rejected rows (past the new length) are not written, and the
-            # next block starts at ring row 0 again
-            fold_ring_into_pages(st["k"], st["v"], st["ring_k"], st["ring_v"],
-                                 st["page_table"], new_cache["pages_length"],
-                                 st["ring_k"].shape[3], new_length)
-            cache["pages_length"] = new_length
-        cache["length"] = new_length
-        return history, tokens, active, remaining, g, emit
+        new_remaining = remaining - n_emit
+        # committed tokens land at length + 1 + i; the others write back
+        # what is there (every position lies below the history's width)
+        pos = length[:, None].long() + 1 + idx
+        history.scatter_(1, pos, torch.where(emit, g, history.gather(1, pos)))
+        tokens.copy_(torch.where(n_emit > 0, last, tokens))
+        active.copy_(active & ~finished_eos & (new_remaining > 0) & (new_length < max_len))
+        remaining.copy_(new_remaining)
+        length.copy_(new_length)
+        out[0].copy_(g)
+        out[1].copy_(emit)
+        with tracer.span("decode.fold"):
+            # accepted rows land in their pages, rejected rows (past the new
+            # length) are not written, and the next block starts at ring row 0
+            self.kv.fold(k + 1)
 
-    def _spec_chunk(self, n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``n_steps`` verify steps; returns the (n_steps, slots, k+1) token
-        matrix and emission mask."""
-        st = self.state
-        cache = {k: st[k] for k in self.cache_keys}
-        history, tokens = st["history"], st["tokens"]
-        active, remaining = st["active"], st["remaining"]
-        B, k = tokens.shape[0], self.spec_k
-        gs, emits = [], []
-        for _ in range(n_steps):
-            if not bool(active.any()):  # every slot is done: skip the step
-                gs.append(torch.zeros((B, k + 1), dtype=torch.int32, device=self.device))
-                emits.append(torch.zeros((B, k + 1), dtype=torch.bool, device=self.device))
-                continue
-            history, tokens, active, remaining, g, emit = self._verify_step(
-                cache, history, tokens, active, remaining)
-            gs.append(g)
-            emits.append(emit)
-        st["length"].copy_(cache["length"])
-        if self.paged:
-            st["pages_length"].copy_(cache["pages_length"])
-        st["history"].copy_(history)
-        st["tokens"].copy_(tokens)
-        st["active"].copy_(active)
-        st["remaining"].copy_(remaining)
-        return torch.stack(gs), torch.stack(emits)
+    def _decode_chunk(self, chunk: int) -> torch.Tensor:
+        """``chunk`` steps over the slot pool, then the layout's fold. A live
+        step runs :meth:`_verify_step` with speculation, else
+        :meth:`_decode_step`: as the replay of one CUDA graph where
+        ``_graph_key`` is set (the ring row is found on the device, so one
+        graph serves every step and chunk size), else eagerly. Returns the
+        int32 block read back: (1, chunk, slots, 1) tokens, or (2, chunk,
+        slots, k + 1) tokens and emission mask (zero for a skipped step)."""
+        st, dev, k = self.state, self.device, self.spec_k
+        # the JAX plain chunk splits its key once per step, dead steps included
+        key, subs = prng.prng_key(st["seed"]), []
+        for _ in range(chunk if self.cfg.do_sample and not k else 0):
+            key, sub = prng.split(key)
+            subs.append(sub)
+        graph = self._graph_key is not None
+        if graph and subs:
+            # the chunk's keys reach the card in one pinned copy
+            subs = torch.stack(subs).pin_memory().to(dev, non_blocking=True)
+        shape = (2 if k else 1, chunk, self.cfg.max_slots, k + 1)
+        out = (torch.zeros if k else torch.empty)(shape, dtype=torch.int32, device=dev)
+        for i in range(chunk):
+            sub = subs[i] if len(subs) else None
+            with tracer.span("decode.step") as sp:
+                with tracer.span("decode.wait"):
+                    ran = bool(st["active"].any())
+                sp.set(ran=ran)
+                if ran and k:
+                    self._verify_step(out[:, i])
+                elif ran:
+                    self.n_decode_steps += 1
+                    if not graph:
+                        self._decode_step(sub)
+                    else:
+                        sp.set(graph=True)
+                        if self._decode_graph is None:
+                            self._capture_decode_step()
+                        with tracer.span("decode.forward"):
+                            if sub is not None:
+                                self._graph_key.copy_(sub)
+                            self._decode_graph.replay()
+                        self.n_decode_graph_steps += 1
+                        self.n_kernel_samples += self._graph_samples
+                if not k:
+                    # a skipped step (every slot done) repeats the last token row
+                    out[0, i, :, 0].copy_(st["tokens"])
+        with tracer.span("decode.fold"):
+            if not k:  # a verify step folds its own block
+                self.kv.fold(chunk)
+            self.n_decode_chunks += 1
+        st["seed"] = _wrap_int32(st["seed"] + 1)
+        return out
+
+    def _replay(self, toks: np.ndarray, emits: Optional[np.ndarray], live: np.ndarray) -> None:
+        """Advance the host mirrors of the ``live`` slots from a chunk's
+        (steps, slots, width) tokens: each slot's tokens in order, or, with
+        an emission mask (verify steps), its emitted ones. EOS and the budget
+        finish a slot here; the cache's end finishes it at the top of the
+        next step, after this chunk's fold used its pages."""
+        if emits is not None:
+            # verify steps with a live slot, live slot-steps and committed
+            # tokens: emitted / slot-steps is the tokens each verify yields
+            ran = emits.any(axis=2)
+            self.spec_verify_steps += int(ran.any(axis=1).sum())
+            self.spec_slot_steps += int(ran.sum())
+            self.spec_emitted += int(emits.sum())
+        with tracer.span("engine.replay") as sp:
+            if sp:
+                rids = [self.slot_request[s].request_id for s in live]
+                generated = self.slot_generated[live].copy()
+            for slot in live:
+                req = self.slot_request[slot]
+                row = toks[:, slot] if emits is None else toks[:, slot][emits[:, slot]]
+                for tok in row.reshape(-1).tolist():
+                    req.tokens.append(tok)
+                    self.slot_generated[slot] += 1
+                    self.lengths[slot] += 1
+                    if tok == self.eos_id:
+                        self._finish(slot, reason="eos")
+                        break
+                    if self.slot_generated[slot] >= self.slot_budget[slot]:
+                        self._finish(slot, reason="budget")
+                        break
+                    if self.lengths[slot] >= self.cfg.max_seq_len:
+                        break
+            if sp:
+                sp.set(emitted=dict(zip(rids, (self.slot_generated[live]
+                                               - generated).tolist())))
 
     # ------------------------------------------------------------------
     # Public API
@@ -906,11 +685,7 @@ class ServingEngine:
             top_p=self.cfg.top_p if top_p is None else top_p,
             submit_time=time.time(),
         )
-        if self.paged and self._required_pages(req) > self.num_pages - 1:
-            raise ValueError(
-                f"request needs {self._required_pages(req)} KV pages but the "
-                f"pool only has {self.num_pages - 1}; raise num_pages or "
-                f"lower max_new_tokens")
+        self.kv.refuse(req)
         self._next_id += 1
         self.queue.append(req)
         return req
@@ -925,22 +700,18 @@ class ServingEngine:
         if n < 1:
             raise ValueError("submit_group needs n >= 1")
         kw = dict(max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p)
-        if not self.paged or n == 1:
+        if not self.kv.forks or n == 1:
             return [self.submit(batch, **kw) for _ in range(n)]
         if n > self.cfg.max_slots:
             raise ValueError(
                 f"group of {n} exceeds max_slots={self.cfg.max_slots}; "
                 "a forked group is admitted atomically")
         primary = self.submit(batch, **kw)
-        plen = int(np.asarray(batch["attention_mask"]).sum())
-        p_need = self._required_pages(primary)
-        own = max(p_need - min(plen // self.page_size, p_need), 0)
-        if p_need + (n - 1) * own > self.num_pages - 1:
+        try:
+            self.kv.refuse(primary, n)
+        except ValueError:
             self.queue.remove(primary)
-            raise ValueError(
-                f"group needs {p_need + (n - 1) * own} KV pages but the "
-                f"pool only has {self.num_pages - 1}; raise num_pages or "
-                "lower max_new_tokens/group size")
+            raise
         for _ in range(n - 1):
             primary.forks.append(Request(
                 request_id=self._next_id, batch=batch,
@@ -981,7 +752,7 @@ class ServingEngine:
         """Move queued requests into free slots: same-signature requests
         prefill in one batched call; a forked group is admitted atomically;
         a prompt longer than the largest bucket prefills in chunks. The head
-        waits (FIFO) while the page pool cannot host it. With
+        waits (FIFO) while the layout cannot hold it. With
         ``prefill_group_cap`` one group is admitted per engine step."""
         cap = self.cfg.prefill_group_cap
         free = [s for s in range(self.cfg.max_slots)
@@ -992,11 +763,13 @@ class ServingEngine:
                 if not self._try_admit_group(head, free):
                     break
                 continue
-            if self.paged and self._required_pages(head) > len(self.free_pages):
+            if not self.kv.fitting([head]):
                 break  # pool exhausted: wait for pages, don't starve the head
             if self._bucket_for(head.batch["input_ids"].shape[1]) is None:
                 self.queue.remove(head)
-                self._prefill_chunked(head, free.pop(0))
+                slot = free.pop(0)
+                self.kv.reserve(head, slot)
+                self._prefill_chunked(head, slot)
                 continue
             take = [r for r in self.queue[: len(free)] if not r.forks
                     and self._bucket_for(r.batch["input_ids"].shape[1]) is not None]
@@ -1006,27 +779,60 @@ class ServingEngine:
             # engine does (there to bound its compiled variants), so both
             # engines batch alike
             group = group[:cap] if cap else group[: 1 << (len(group).bit_length() - 1)]
-            if self.paged:
-                # shrink the group to what the free pool can host
-                budget, fits = len(self.free_pages), 0
-                for r in group:
-                    need = self._required_pages(r)
-                    if need > budget:
-                        break
-                    budget -= need
-                    fits += 1
-                if fits == 0:
-                    break
-                group = group[:fits]
-            for r in group:
-                self.queue.remove(r)
+            # shrink the group to what the free pool can host (the head fits)
+            group = group[: self.kv.fitting(group)]
             slots, free = free[: len(group)], free[len(group):]
+            for r, slot in zip(group, slots):
+                self.queue.remove(r)
+                self.kv.reserve(r, slot)
             self._prefill_group(group, slots, sig)
             if cap:
                 break  # staggered: this step's decode chunk runs before the next group
 
-    def _prefill_group(self, group: List[Request], slots: List[int], sig,
-                       reserve: bool = True) -> None:
+    def _try_admit_group(self, primary: Request, free: List[int]) -> bool:
+        """Admit a forked group (primary + siblings) atomically: one
+        prefill, then the fork: each sibling takes a copy of the primary's
+        partial last page and samples its first token from the primary's
+        saved last logits. Returns False when slots or pages are short (the
+        group waits at the queue head)."""
+        forks = primary.forks
+        need_slots = 1 + len(forks)
+        if len(free) < need_slots or not self.kv.fitting([primary], need_slots):
+            return False
+        self.queue.remove(primary)
+        slots = [free.pop(0) for _ in range(need_slots)]
+        slot0, fork_slots = slots[0], slots[1:]
+        # every page is reserved first: the forks' refcounts on the shared
+        # prompt pages must exist before the primary might finish and release
+        plen = int(np.asarray(primary.batch["attention_mask"]).sum())
+        self.kv.reserve(primary, slot0)
+        tail = self.kv.reserve_forks(forks, fork_slots, slot0, plen)
+        if self._bucket_for(primary.batch["input_ids"].shape[1]) is None:
+            self._prefill_chunked(primary, slot0)
+        else:
+            self._prefill_group([primary], [slot0], self._request_signature(primary))
+        st, dev, n = self.state, self.device, len(forks)
+        with tracer.span("engine.fork"), torch.inference_mode():
+            self.kv.copy_page(*tail)
+            logits = self._last_prefill_logits[0].expand(n, -1)
+            temps = torch.tensor([r.temperature for r in forks], dtype=torch.float32, device=dev)
+            top_ps = torch.tensor([r.top_p for r in forks], dtype=torch.float32, device=dev)
+            budgets = torch.tensor([r.max_new_tokens for r in forks], dtype=torch.int32,
+                                   device=dev)
+            first = self._sample(logits, temps, top_ps, prng.prng_key(self._next_seed()))
+            history = (st["history"][slot0:slot0 + 1].expand(n, -1).clone()
+                       if "history" in st else None)
+            self._set_slots(torch.tensor(fork_slots, device=dev),
+                            torch.full((n,), plen, dtype=torch.int32, device=dev), first,
+                            budgets, temps, top_ps, self.kv.rows(fork_slots), history)
+            first = first.cpu().numpy()
+        now = time.time()
+        for j, (req, slot) in enumerate(zip(forks, fork_slots)):
+            self._admit_on_host(req, slot, plen, int(first[j]), now)
+        return True
+
+    def _prefill_group(self, group: List[Request], slots: List[int], sig) -> None:
+        """One batched prefill of ``group`` into its reserved ``slots``."""
         bucket, _ = sig
         with tracer.span("engine.prefill") as sp:
             if sp:
@@ -1054,23 +860,15 @@ class ServingEngine:
                         "batch_idx": torch.from_numpy(batch_idx).to(dev),
                         "token_pos": torch.from_numpy(token_pos).to(dev),
                     }
-            if not self.paged:
-                dest = page_rows = None  # each request's row goes to its slot
-            else:
-                if reserve:
-                    for req, slot in zip(group, slots):
-                        self._reserve_pages(req, slot)
-                dest = self._bucket_page_ids(slots, bucket).astype(np.int64)
-                page_rows = self.page_table[np.asarray(slots)]
 
             def t(a, dtype):
-                return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+                return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
             with torch.inference_mode():
                 lengths, first, last_logits = self._prefill(
                     bucket, t(input_ids, torch.long), t(mask, torch.int32), mm,
-                    t(dest, torch.long), t(slots, torch.long), t(page_rows, torch.int32),
-                    t([r.temperature for r in group], torch.float32),
+                    self.kv.prefill_dest(slots, bucket), t(slots, torch.long),
+                    self.kv.rows(slots), t([r.temperature for r in group], torch.float32),
                     t([r.top_p for r in group], torch.float32),
                     t([r.max_new_tokens for r in group], torch.int32), self._next_seed())
                 both, moe = self._read_back(torch.stack([lengths, first]))
@@ -1102,8 +900,7 @@ class ServingEngine:
         sp.set(experts_touched=moe[0], expert_assignments=moe[1])
 
     def _finish(self, slot: int, reason: str = "budget") -> None:
-        if self.paged:
-            self._release_pages(slot)
+        self.kv.release(slot)
         req = self.slot_request[slot]
         if req is not None:
             req.done = True
@@ -1125,94 +922,30 @@ class ServingEngine:
                     self._finish(slot, reason="capacity")
             if not self.active.any():
                 return bool(self.queue)
-            if self.spec_k:
-                return self._spec_step()
 
-            # shrink the final chunk to the tightest active slot's headroom, to a
-            # power of two as the JAX engine does, so both admit at the same steps
-            headroom = min(self.cfg.max_seq_len - int(self.lengths[s])
-                           for s in range(self.cfg.max_slots) if self.active[s])
-            chunk_now = min(self.decode_chunk, max(1, headroom))
             if self.cfg.prefill_group_cap and self.queue:
                 # staggered admission: a 1-step chunk between groups keeps the
                 # admitted streams alive without delaying the next group's prefill
-                chunk_now = 1
-            chunk_now = 1 << (chunk_now.bit_length() - 1)
+                chunk = 1
+            elif self.spec_k:
+                chunk = self.decode_chunk  # the emission mask stops a slot at the cache's end
+            else:
+                # shrink the final chunk to the tightest active slot's headroom, to
+                # a power of two as the JAX engine does, so both admit at the same
+                # steps
+                headroom = min(self.cfg.max_seq_len - int(self.lengths[s])
+                               for s in range(self.cfg.max_slots) if self.active[s])
+                chunk = 1 << (min(self.decode_chunk, max(1, headroom)).bit_length() - 1)
 
-            active_at_start = self.active.copy()
+            live = np.flatnonzero(self.active)
             with tracer.span("decode.chunk") as sp, torch.inference_mode():
-                toks = self._decode_chunk(chunk_now)
+                block = self._decode_chunk(chunk)
                 with tracer.span("decode.wait"):
-                    toks, moe = self._read_back(toks)
-                    toks = toks.numpy()  # (chunk, slots)
+                    block, moe = self._read_back(block)
+                    block = block.numpy()
                 self._count_experts(sp, moe)
-
-            # Advance the host mirrors from the tokens alone, replicating the
-            # device's deactivation rules.
-            with tracer.span("engine.replay") as sp:
-                if sp:
-                    live = np.flatnonzero(active_at_start)
-                    rids = [self.slot_request[s].request_id for s in live]
-                    generated = self.slot_generated[live].copy()
-                for slot in range(self.cfg.max_slots):
-                    if not active_at_start[slot]:
-                        continue
-                    req = self.slot_request[slot]
-                    for s in range(chunk_now):
-                        tok = int(toks[s, slot])
-                        req.tokens.append(tok)
-                        self.slot_generated[slot] += 1
-                        self.lengths[slot] += 1
-                        if tok == self.eos_id:
-                            self._finish(slot, reason="eos")
-                            break
-                        if self.slot_generated[slot] >= self.slot_budget[slot]:
-                            self._finish(slot, reason="budget")
-                            break
-                        if self.lengths[slot] >= self.cfg.max_seq_len:
-                            # the finish (page release) happens at the top of the
-                            # next step, after this chunk's fold used the pages
-                            break
-                if sp:
-                    sp.set(emitted=dict(zip(rids, (self.slot_generated[live]
-                                                   - generated).tolist())))
+            self._replay(block[0], block[1].astype(bool) if self.spec_k else None, live)
             return bool(self.queue) or bool(self.active.any())
-
-    def _spec_step(self) -> bool:
-        """A chunk of verify steps + the host-mirror replay. EOS, budget and
-        capacity are enforced on the device by the emission mask; the
-        mirrors replay it."""
-        n_steps = 1 if (self.cfg.prefill_group_cap and self.queue) else self.decode_chunk
-        with torch.inference_mode():
-            gs, ems = self._spec_chunk(n_steps)
-            gs, ems = gs.cpu().numpy(), ems.cpu().numpy()  # (n_steps, slots, k+1)
-        # verify steps with a live slot, live slot-steps and committed
-        # tokens: emitted / slot-steps is the tokens each verify yields
-        live = ems.any(axis=2)
-        self.spec_verify_steps += int(live.any(axis=1).sum())
-        self.spec_slot_steps += int(live.sum())
-        self.spec_emitted += int(ems.sum())
-        for s in range(gs.shape[0]):
-            for slot in range(self.cfg.max_slots):
-                req = self.slot_request[slot]
-                if req is None or not self.active[slot]:
-                    continue
-                for i in range(gs.shape[2]):
-                    if not ems[s, slot, i]:
-                        continue
-                    tok = int(gs[s, slot, i])
-                    req.tokens.append(tok)
-                    self.slot_generated[slot] += 1
-                    self.lengths[slot] += 1
-                    if tok == self.eos_id:
-                        self._finish(slot, reason="eos")
-                        break
-                if self.slot_request[slot] is not None and self.active[slot]:
-                    if self.slot_generated[slot] >= self.slot_budget[slot]:
-                        self._finish(slot, reason="budget")
-                    elif self.lengths[slot] >= self.cfg.max_seq_len:
-                        self._finish(slot, reason="capacity")
-        return bool(self.queue) or bool(self.active.any())
 
     def run(self) -> None:
         """Drain the queue completely."""

@@ -72,8 +72,8 @@ def test_greedy_tokens_match_jax_and_pages_are_released(pair):
     eng = _engine(tmodel)
     got = eng.generate(batches)
     assert got == want
-    assert sorted(eng.free_pages) == list(range(1, eng.num_pages))
-    assert np.all(eng.page_table == 0) and np.all(eng.slot_num_pages == 0)
+    assert sorted(eng.kv.free_pages) == list(range(1, eng.kv.num_pages))
+    assert np.all(eng.kv.page_table == 0) and np.all(eng.kv.slot_num_pages == 0)
     assert eng.n_prefill_calls >= 2 and eng.n_decode_chunks >= 1
 
 
@@ -86,7 +86,7 @@ def test_pool_exhaustion_queues_requests(pair):
     assert len(eng.queue) >= 1
     eng.run()
     assert all(r.done and r.finish_reason for r in reqs)
-    assert sorted(eng.free_pages) == list(range(1, eng.num_pages))
+    assert sorted(eng.kv.free_pages) == list(range(1, eng.kv.num_pages))
     assert [r.tokens for r in reqs] == want
 
 

@@ -4,17 +4,23 @@ Repeats the cases of tests/test_paged_engine.py (chunked prefill, group
 forks, staggered admission) and tests/test_serving_edges.py (chunked prefill
 against a single bucket)."""
 
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 
+from multimeditron_torch.convert import load_jax_params
+from multimeditron_torch.models import multimodal as tm
 from multimeditron_torch.serve import engine as te
 from multimeditron_tpu.data.chat_template import ChatTemplate
 from multimeditron_tpu.data.collator import DataCollatorForMultimodal
 from multimeditron_tpu.data.loaders import AutoModalityLoader
+from multimeditron_tpu.models.multimodal import MultimodalModel
 from multimeditron_tpu.serve.engine import EngineConfig as JEngineConfig
 from multimeditron_tpu.serve.engine import ServingEngine as JServingEngine
 from tests.fixtures.toy_tokenizer import ToyTokenizer
-from tests.test_multimodal import ATTACH, _img
+from tests.test_multimodal import ATTACH, _img, tiny_mm_config
 from tests.test_paged_engine import PROMPTS
 from tests.test_torch_engine import jax_model, port_model  # noqa: F401 (fixtures)
 
@@ -59,7 +65,7 @@ def test_chunked_prefill_through_pages(port_model, jax_model, collator):
     eng = _engine(port_model, **LONG)
     assert eng.generate([batch], max_new_tokens=6) == want
     assert eng.n_prefill_calls >= 2  # one call per chunk
-    assert sorted(eng.free_pages) == list(range(1, eng.num_pages))
+    assert sorted(eng.kv.free_pages) == list(range(1, eng.kv.num_pages))
 
 
 def test_chunked_prefill_multimodal_through_pages(port_model, jax_model, collator):
@@ -128,19 +134,40 @@ def test_group_fork_shares_prompt_pages(port_model, collator):
     eng.submit_group(b, 3, max_new_tokens=8)
     eng._admit()
     plen = int(np.asarray(b["attention_mask"]).sum())
-    n_full = plen // eng.page_size
+    n_full = plen // eng.kv.page_size
     assert n_full >= 1
-    rows = eng.page_table[:3]
+    rows = eng.kv.page_table[:3]
     # full prompt pages are the same page ids in every slot of the group
     for j in range(n_full):
         assert rows[1, j] == rows[0, j] and rows[2, j] == rows[0, j]
-        assert eng.page_ref[rows[0, j]] == 3
+        assert eng.kv.page_ref[rows[0, j]] == 3
     # decode and tail pages are private
-    for j in range(n_full, int(eng.slot_num_pages[0])):
+    for j in range(n_full, int(eng.kv.slot_num_pages[0])):
         assert len({int(rows[i, j]) for i in range(3)}) == 3
     eng.run()
-    assert eng.page_ref.sum() == 0
-    assert len(eng.free_pages) == eng.num_pages - 1
+    assert eng.kv.page_ref.sum() == 0
+    assert len(eng.kv.free_pages) == eng.kv.num_pages - 1
+
+
+def test_group_fork_one_layer_one_kv_head(collator):
+    """A forked pair on a one-layer, one-K/V-head decoder, over a prompt that
+    ends inside a page: the sibling's copy of the tail page, whose source
+    page is then the whole of its slice of the pool, gives the JAX engine's
+    tokens."""
+    cfg = tiny_mm_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=1,
+                                                           num_kv_heads=1))
+    jmodel = MultimodalModel(cfg)
+    jmodel.config.eos_token_idx = 2
+    params = jmodel.init_params(jax.random.PRNGKey(1))
+    tmodel = tm.MultimodalModel(tm.MultimodalConfig.from_dict(jmodel.config.to_dict()),
+                                device="cpu")
+    load_jax_params(tmodel, jax.tree.map(np.asarray, params))
+    b = collator([PROMPTS[0]])
+    assert int(np.asarray(b["attention_mask"]).sum()) % BASE["page_size"] != 0
+    want = JServingEngine(jmodel, params, JEngineConfig(**BASE)).generate(
+        [b, b], max_new_tokens=8, group_size=2)
+    assert _engine(tmodel).generate([b, b], max_new_tokens=8, group_size=2) == want
 
 
 @pytest.mark.parametrize("spec_k", [0, 2])

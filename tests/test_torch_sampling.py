@@ -66,9 +66,7 @@ def test_twin_is_the_engines_eager_composition(rows, V, per_row):
 
 def _engine_like(**cfg):
     """Enough of a ServingEngine to call its ``_sample``."""
-    eng = types.SimpleNamespace(cfg=EngineConfig(**cfg), n_kernel_samples=0)
-    eng._filter_logits = lambda scaled, top_ps: ServingEngine._filter_logits(eng, scaled, top_ps)
-    return eng
+    return types.SimpleNamespace(cfg=EngineConfig(**cfg), n_kernel_samples=0)
 
 
 @pytest.mark.parametrize("per_row", [False, True])
@@ -84,7 +82,8 @@ def test_engine_sample_on_the_cpu(filters, per_row):
     for seed in SEEDS:
         key = _key(seed, 6, per_row)
         got = ServingEngine._sample(eng, logits, temps, top_ps, key)
-        scaled = eng._filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None], top_ps)
+        scaled = sampling.filter_logits(logits / torch.clamp(temps, min=1e-6)[:, None],
+                                        eng.cfg.top_k, top_ps if eng.cfg.top_p < 1.0 else None)
         sampled = prng.categorical(key, scaled).to(torch.int32)
         want = torch.where(temps > 1e-6, sampled, torch.argmax(logits, -1).to(torch.int32))
         assert torch.equal(got, want)

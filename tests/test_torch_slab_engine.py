@@ -60,7 +60,7 @@ def test_slab_state_has_no_pages(pair):
     st = eng.state
     assert st["k"].shape == (2, 2, 2, 128, 16) and st["v"].shape == st["k"].shape
     assert not any(k in st for k in ("page_table", "pages_length", "ring_k", "ring_v"))
-    assert not hasattr(eng, "free_pages")
+    assert not hasattr(eng.kv, "free_pages")
     # no page accounting: any budget is admitted (the cache caps the length)
     eng.submit(pair[1][0], max_new_tokens=10_000)
     with pytest.raises(ValueError, match="kv_mode"):

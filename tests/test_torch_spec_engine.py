@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from multimeditron_torch.profiling import tracer
 from multimeditron_torch.serve import engine as te
 from multimeditron_tpu.serve.engine import EngineConfig as JEngineConfig
 from multimeditron_tpu.serve.engine import ServingEngine as JServingEngine
@@ -55,12 +56,35 @@ def test_plain_greedy_matches_jax(port_model, plain):
     assert _engine(port_model).generate(BATCHES, max_new_tokens=24) == plain
 
 
+def test_spec_run_records_the_decode_spans(port_model):
+    """A speculative run records the plain path's spans: verify steps in
+    ``decode.step`` (``ran``) inside ``decode.chunk``, and the replay's
+    ``emitted`` counts, which sum to ``spec_emitted``."""
+    tracer.enable()
+    try:
+        eng = _engine(port_model, spec_k=2)
+        eng.generate(BATCHES, max_new_tokens=12)
+        spans = tracer.spans()
+    finally:
+        tracer.disable()
+    names = {s["name"] for s in spans}
+    assert {"decode.chunk", "decode.step", "decode.wait", "decode.forward", "decode.sample",
+            "decode.fold", "engine.replay"} <= names
+    steps = [s for s in spans if s["name"] == "decode.step"]
+    by_index = {s["index"]: s for s in spans}
+    assert all(by_index[s["parent"]]["name"] == "decode.chunk" for s in steps)
+    assert sum(s["attrs"]["ran"] for s in steps) == eng.spec_verify_steps > 0
+    emitted = sum(n for s in spans if s["name"] == "engine.replay"
+                  for n in s["attrs"]["emitted"].values())
+    assert emitted == eng.spec_emitted > 0
+
+
 def test_spec_paged_releases_pages(port_model):
     eng = _engine(port_model, spec_k=3)
-    total_free = len(eng.free_pages)
+    total_free = len(eng.kv.free_pages)
     eng.generate(BATCHES, max_new_tokens=10)
-    assert len(eng.free_pages) == total_free
-    assert np.all(eng.slot_num_pages == 0) and eng.page_ref.sum() == 0
+    assert len(eng.kv.free_pages) == total_free
+    assert np.all(eng.kv.slot_num_pages == 0) and eng.kv.page_ref.sum() == 0
 
 
 def test_spec_budget_respected(port_model, plain):
