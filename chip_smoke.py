@@ -2403,7 +2403,7 @@ def run_other_calibrations(model: MultimodalModel, n_batches: int = 8, batch: in
 
 MELLUM_CONFIG = "bench_torch/configs/mellum2-12b-a2.5b-clip-l14.json"
 # each kernel's device records, a decode graph's replays included: the route
-# launch stands for the expert kernel's four (route, gate-up, down, combine)
+# launch stands for the expert kernel's three (route, gate-up and down, combine)
 MELLUM_KERNELS = {"grouped_experts": r"\bgrouped_experts_route_kernel\b",
                   "ring_decode_attention": GRAPH_KERNELS["ring_decode_attention"],
                   **SAMPLER_KERNELS}

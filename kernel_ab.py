@@ -11,9 +11,12 @@ paged decode attention K4 and K8 in bf16 at chip_smoke.py phase 3's cases
 K4 at Mellum2-12B's decode shape (128 slots, 32 / 4 heads, D = 128) over
 3,000 keys with and without its 1,024-key window and over the GRPO cell's
 mix of lengths, and the grouped-expert kernel at Mellum2-12B's widths (D =
-2,304, 64 experts of F = 896, top-8) for a 128-slot decode step and a
-1,024-token prefill chunk. A tree without K4's window or without the
-grouped-expert entry skips those cases.
+2,304, 64 experts of F = 896, top-8) for a 128-slot decode step routed over
+all 64 experts and over 32 of them (the GRPO cell's load) and a 1,024-token
+prefill chunk. A tree without K4's window or without the grouped-expert
+entry skips those cases; a tree from before the expert kernel's token tile
+(an ``mmt_grouped_experts`` without ``tile_n``) runs it through the entry
+it had.
 
     python3 kernel_ab.py [--only NAME[,NAME...]] [SOURCE_DIR ...]
 
@@ -79,6 +82,8 @@ OLDER_SIGNATURES = {
 }
 # K4 with the in-launch merge, before its window argument
 NO_WINDOW_K4 = (_P,) * 11 + (_I,) * 10 + (_F, _I, _I, _P)
+# the grouped-expert entry before its token tile and counters
+OLDER_EXPERTS = (_P,) * 13 + (_I,) * 5 + (_P,)
 
 
 def load_tree(d: str):
@@ -113,6 +118,11 @@ def load_tree(d: str):
     if not lib.older_k4 and not lib.k4_window:
         lib.mmt_ring_decode_attention.argtypes = list(NO_WINDOW_K4)
     lib.has_experts = hasattr(lib, "mmt_grouped_experts")
+    if lib.has_experts and "tile_n" not in (tree / "grouped_experts.cu").read_text():
+        older = lib.mmt_grouped_experts
+        older.argtypes = list(OLDER_EXPERTS)
+        # the wrapper's arguments without counters and tile_n
+        lib.mmt_grouped_experts = lambda *a: older(*a[:11], *a[12:19], a[20])
     return lib
 
 
@@ -241,14 +251,19 @@ def decode_runs(gen) -> dict:
 def expert_runs(gen) -> dict:
     """The grouped-expert kernel at Mellum2-12B's widths: a 128-slot decode
     step (1,024 assignments) and a 1,024-token prefill chunk, routed by a
-    softmax top-8 of random router scores."""
+    softmax top-8 of random router scores over all 64 experts, and the
+    decode step routed over 32 of them (the GRPO cell's load: ~32 experts
+    touched a layer, ~32 assignments each)."""
     E, F_, D, k = 64, 896, 2304, 8
     w = [torch.randn(*shape, generator=gen, device="cuda").mul_(fan ** -0.5).bfloat16()
          for shape, fan in (((E, F_, D), D), ((E, F_, D), D), ((E, D, F_), F_))]
     out = {}
-    for name, N in (("decode 128 slots", 128), ("prefill 1024 tokens", 1024)):
+    for name, N, used in (("decode 128 slots", 128, E), ("decode 128 slots 32 experts", 128, 32),
+                          ("prefill 1024 tokens", 1024, E)):
         x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
-        scores = torch.softmax(torch.randn(N, E, generator=gen, device="cuda"), dim=-1)
+        logits = torch.randn(N, E, generator=gen, device="cuda")
+        logits[:, torch.randperm(E, generator=gen, device="cuda")[used:]] = float("-inf")
+        scores = torch.softmax(logits, dim=-1)
         top, ids = torch.topk(scores, k, dim=-1)
         top = top / top.sum(dim=-1, keepdim=True)
         fn = (lambda x=x, ids=ids, top=top: ge.grouped_experts(x, ids, top, *w))

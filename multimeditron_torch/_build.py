@@ -105,10 +105,10 @@ SIGNATURES = {
     # q8, k8, v8, o, B, S, H, dh, kv_len, qk_scale, pv_scale, out_code, stream
     "mmt_encoder_attention_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     # x, ids (int64), weights (float32), w_gate, w_up, w_down, counts, offsets,
-    # perm (int32 scratch), h (bf16 scratch), ybuf (float32 scratch), stats
-    # (int64, or NULL), y, N, D, F, E, k, stream
-    "mmt_grouped_experts": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _P),
+    # perm (int32 scratch), h (bf16 scratch), ybuf (float32 scratch), counters
+    # (int32 scratch), stats (int64, or NULL), y, N, D, F, E, k, tile_n, stream
+    "mmt_grouped_experts": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P),
     # x, w_q, w_s, out, work (float32 scratch or NULL), counters (int32 zeros
     # or NULL), M, K, N, tile_n, splits, chunks_per_split, dtype, stream
     "mmt_wo_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -227,6 +227,37 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// As above with N = 16 and 32 (the grouped-expert kernel's narrow token
+// tiles); j < 2 and j < 4.
+__device__ __forceinline__ void wgmma_m64n16_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MMT_WGMMA_D16(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // As above with N = 64 (the backward's 64-wide score tiles); d[4j + e] holds
 // row 16w + g + 8 (e / 2), column 8j + 2t + e % 2, j < 8.
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a, uint64_t b,

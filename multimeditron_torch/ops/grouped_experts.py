@@ -5,12 +5,17 @@ them with the router's weights,
 
     y[t] = sum_j w[t, j] * down_e(silu(gate_e x[t]) * up_e x[t]),  e = ids[t, j],
 
-on a CUDA tensor through ``csrc/grouped_experts.cu`` (route, gate-up, down
-and combine: four launches, no host synchronisation, so the decode step's
-CUDA graph captures them), on a CPU tensor through its plain twin
+on a CUDA tensor through ``csrc/grouped_experts.cu`` (route, gate-up and
+down in one persistent launch, combine: three launches, no host
+synchronisation, so the decode step's CUDA graph captures them), on a CPU
+tensor through its plain twin
 ``grouped_experts_plain``. Both round silu(g) * u to the input's dtype
 before the down projection, as the dense MLP does, apply the routing weight
 in float32 and round each token's sum once.
+
+The host chooses the kernel's token tile from the call's shape alone
+(:func:`token_tile`); the kernel narrows its products to each expert's rows
+on the device.
 
 ``stats``, when given, is an int64 (2,) tensor on the input's device to
 which a call adds (experts with at least one assignment, assignments): the
@@ -19,6 +24,7 @@ engine reads it back with what it reads anyway.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,9 +32,12 @@ import torch.nn.functional as F
 
 from multimeditron_torch import _build
 
+TOKEN_TILES = (16, 32, 64)  # the kernel's token tiles (wgmma's widest N)
+
 # Launches of the CUDA entry point (the plain twin does not count), counted by
 # the calls made on the host: a captured CUDA graph counts once, at capture.
-launches = {"grouped_experts": 0}
+# "tile<T>" counts the launches at token tile T.
+launches = {"grouped_experts": 0, **{f"tile{t}": 0 for t in TOKEN_TILES}}
 
 MAX_EXPERTS = 256
 MAX_TOKENS = 65535  # the combine's grid rows
@@ -56,6 +65,16 @@ def grouped_experts_plain(x: torch.Tensor, ids: torch.Tensor, weights: torch.Ten
     if stats is not None:
         stats += torch.tensor([touched, N * k], dtype=stats.dtype, device=stats.device)
     return out.view(N, k, D).sum(dim=1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def token_tile(N: int, k: int, E: int) -> int:
+    """Tokens a tile of the kernel (wgmma's widest N): the smallest of
+    ``TOKEN_TILES`` that holds twice the mean assignments an expert, N k / E
+    (routing is uneven), else the largest. A 128-slot decode step of 64
+    experts, top 8, takes 32; a prefill chunk of 256 tokens or more 64."""
+    want = 2 * -(-N * k // E)
+    return next((t for t in TOKEN_TILES if t >= want), TOKEN_TILES[-1])
 
 
 def grouped_experts(x: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
@@ -91,21 +110,27 @@ def grouped_experts(x: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
     if ids.dtype != torch.int64 or weights.dtype != torch.float32:
         raise ValueError("ids must be int64 and weights float32")
     x, ids, weights = x.contiguous(), ids.contiguous(), weights.contiguous()
+    if x.data_ptr() % 16:  # the kernel gathers 16-byte pieces of x's rows
+        x = x.clone()
     if not all(t.is_contiguous() for t in (w_gate, w_up, w_down)):
         raise ValueError("expert weights must be contiguous")
     A, dev = N * k, x.device
     ints = dict(dtype=torch.int32, device=dev)
-    counts, offsets, perm = (torch.empty(E, **ints), torch.empty(E + 1, **ints),
-                             torch.empty(A, **ints))
+    # counters: the kernel's unit queue and per-expert counts (the route
+    # launch zeroes them)
+    counts, offsets, perm, counters = (torch.empty(E, **ints), torch.empty(E + 1, **ints),
+                                       torch.empty(A, **ints), torch.empty(1 + E, **ints))
     h = torch.empty((A, F_), dtype=x.dtype, device=dev)
     ybuf = torch.empty((A, D), dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
-    lib = _build.library()
-    code = lib.mmt_grouped_experts(
+    stream = _build.stream_handle(dev)
+    tile = token_tile(N, k, E)
+    code = _build.library().mmt_grouped_experts(
         x.data_ptr(), ids.data_ptr(), weights.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
         w_down.data_ptr(), counts.data_ptr(), offsets.data_ptr(), perm.data_ptr(),
-        h.data_ptr(), ybuf.data_ptr(), None if stats is None else stats.data_ptr(),
-        y.data_ptr(), N, D, F_, E, k, _build.stream_handle(dev))
+        h.data_ptr(), ybuf.data_ptr(), counters.data_ptr(),
+        None if stats is None else stats.data_ptr(), y.data_ptr(), N, D, F_, E, k, tile, stream)
     _build.check("grouped_experts", code)
     launches["grouped_experts"] += 1
+    launches[f"tile{tile}"] += 1
     return y

@@ -14,7 +14,10 @@ their wgmma tiles (two runs bitwise equal; K7g's projection bitwise equal
 to its twin; each K7c form on its own entry), S = 257 and 196, drowned attention rows, every consume path of K7g and each output type
 of K7b, K7c with a float o, K7f against the split pair, K10, the fused tower
 under every calibration shape, K9 at ragged N and M, split K and both tile
-heights, a quantised decoder on the card against the CPU, the flash
+heights, the grouped-expert kernel at Mellum2's widths (decode loads
+over 64, 32 and 4 hot experts, prefill chunks of 1,024 and 1,000 tokens,
+one and 8 tokens; bitwise repeatable, a graph replay equal to the eager
+call), a quantised decoder on the card against the CPU, the flash
 backward at the edges of its tiles (Sq and Skv of 1, 17, 64, 127, 129 and
 1,000, a 128-key tile masked, the training layout at 1,024 rows) and its
 determinism (two runs bitwise equal), and the sampler kernel's tokens
@@ -240,15 +243,86 @@ def test_grouped_experts_kernel(gen, N, D, F_, E, k):
 
     x, ids, weights, w = _experts_case(gen, N, D, F_, E, k, idle=k < E)
     stats = torch.zeros(2, dtype=torch.int64, device="cuda")
-    before = ge.launches["grouped_experts"]
+    before = dict(ge.launches)
     got = ge.grouped_experts(x, ids, weights, *w, stats)
-    assert ge.launches["grouped_experts"] == before + 1
+    tile = f"tile{ge.token_tile(N, k, E)}"
+    assert ge.launches == {**before, "grouped_experts": before["grouped_experts"] + 1,
+                           tile: before[tile] + 1}
     twin_stats = torch.zeros(2, dtype=torch.int64, device="cuda")
     want = ge.grouped_experts_plain(x, ids, weights, *w, twin_stats)
     _assert_close(got, want, torch.bfloat16)
     assert torch.equal(stats, twin_stats)
     assert int(stats[0]) == (E if k == E else len(set(ids.flatten().tolist())))
     assert torch.equal(got, ge.grouped_experts(x, ids, weights, *w))
+
+
+def _mellum_routing(gen, N, load):
+    """(N, 8) expert ids and renormalised weights over Mellum2's 64 experts,
+    a softmax top 8 of random scores: "all" over 63 of them (expert 63
+    chosen by no token), "32" over 32 (the GRPO cell's load, ~32 rows an
+    expert), "hot 4" with experts 0-3 chosen by every token (N rows each:
+    at N = 128, several token tiles) and 4 more of experts 4-62."""
+    E = 64
+    scores = torch.randn(N, E, generator=gen, device="cuda")
+    if load == "all":
+        scores[:, E - 1] = float("-inf")
+    elif load == "32":
+        scores[:, torch.randperm(E, generator=gen, device="cuda")[32:]] = float("-inf")
+    else:
+        scores[:, :4] += 100.0
+        scores[:, E - 1] = float("-inf")
+    top, ids = torch.topk(torch.softmax(scores, dim=-1), 8, dim=-1)
+    return ids, top / top.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("N,load", [
+    (128, "all"),   # a 128-slot decode step over the experts
+    (128, "32"),    # the GRPO cell's load
+    (128, "hot 4"),  # an expert of 128 rows
+    (1024, "all"),  # a prefill chunk
+    (1000, "all"),  # a prefill chunk's ragged end
+    (1, "all"),     # one token: fewer work tiles than SMs
+    (8, "32"),
+])
+def test_grouped_experts_kernel_at_mellum_widths(gen, N, load):
+    """The expert kernel at Mellum2's widths (D 2,304, 64 experts of 896,
+    top 8) against its twin within the bf16 tolerance, with row counts that
+    are not multiples of 8 and an expert with no rows; its counters equal
+    the twin's, its token-tile counter moves, two calls are bitwise equal
+    and so is a CUDA graph's replay of the call."""
+    from multimeditron_torch.ops import grouped_experts as ge
+
+    E, F_, D = 64, 896, 2304
+    w = [torch.randn(*shape, generator=gen, device="cuda").mul_(fan ** -0.5).bfloat16()
+         for shape, fan in (((E, F_, D), D), ((E, F_, D), D), ((E, D, F_), F_))]
+    x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
+    ids, top = _mellum_routing(gen, N, load)
+    counts = torch.bincount(ids.flatten(), minlength=E)
+    assert (counts == 0).any() and (counts % 8).any()
+    if load == "hot 4":
+        assert (counts[:4] == N).all() and N > 64
+    stats, twin_stats = (torch.zeros(2, dtype=torch.int64, device="cuda") for _ in range(2))
+    tile = f"tile{ge.token_tile(N, 8, E)}"
+    before = dict(ge.launches)
+    got = ge.grouped_experts(x, ids, top, *w, stats)
+    assert ge.launches == {**before, "grouped_experts": before["grouped_experts"] + 1,
+                           tile: before[tile] + 1}
+    want = ge.grouped_experts_plain(x, ids, top, *w, twin_stats)
+    _assert_close(got, want, torch.bfloat16)
+    assert torch.equal(stats, twin_stats)
+    assert int(stats[0]) == int((counts > 0).sum())
+    assert torch.equal(got, ge.grouped_experts(x, ids, top, *w))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ge.grouped_experts(x, ids, top, *w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ge.grouped_experts(x, ids, top, *w)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
 
 
 def test_grouped_experts_kernel_refuses_what_it_does_not_take(gen):
@@ -1273,7 +1347,7 @@ def _serve_pair(eng, prompts, group: bool):
 def test_moe_decode_graph_matches_eager_loop(gen):
     """A bf16 decoder with sliding windows of 16 keys and 8 experts (2 a
     token) on the card: the replayed decode step (the grouped-expert
-    kernel's four launches and the windowed K4 inside the graph) against
+    kernel's three launches and the windowed K4 inside the graph) against
     the eager loop, sampled, with a forked group: equal tokens, equal state
     and page pool, equal expert counters; every live step a replay."""
     from multimeditron_torch.models.llama import LlamaConfig

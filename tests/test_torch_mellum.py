@@ -193,16 +193,66 @@ def test_grouped_experts_twin_against_every_expert_dense():
     ids = torch.randint(0, E - 1, (N, k), generator=g)  # expert E - 1 gets no token
     ids[:, 1] = (ids[:, 0] + 1) % (E - 1)
     w = torch.rand(N, k, generator=g)
-    dense = torch.zeros(N, E).scatter_(1, ids, w)
-    xf = x.float()
-    act = (torch.nn.functional.silu(torch.einsum("nd,efd->enf", xf, wg.float()))
-           * torch.einsum("nd,efd->enf", xf, wu.float())).bfloat16().float()
-    want = torch.einsum("enf,edf,ne->nd", act, wd.float(), dense)
+    want = _every_expert_dense(x, ids, w, wg, wu, wd)
     stats = torch.zeros(2, dtype=torch.int64)
     got = ge.grouped_experts(x, ids, w, wg, wu, wd, stats)
     assert got.dtype == torch.bfloat16 and ge.launches["grouped_experts"] == 0
     torch.testing.assert_close(got.float(), want.bfloat16().float(), rtol=0, atol=0.05)
     assert stats.tolist() == [E - 1, N * k]
+
+
+def _every_expert_dense(x, ids, w, wg, wu, wd):
+    """All experts applied to all tokens, weighted by a dense routing matrix
+    (zero off the chosen experts), silu(g) * u rounded to bf16 before down."""
+    dense = torch.zeros(x.shape[0], wg.shape[0]).scatter_(1, ids, w)
+    xf = x.float()
+    act = (torch.nn.functional.silu(torch.einsum("nd,efd->enf", xf, wg.float()))
+           * torch.einsum("nd,efd->enf", xf, wu.float())).bfloat16().float()
+    return torch.einsum("enf,edf,ne->nd", act, wd.float(), dense)
+
+
+@pytest.mark.parametrize("N,E,k,routing", [
+    (1, 8, 2, "spread"),      # one token
+    (13, 8, 2, "same"),       # every token on the same two experts
+    (13, 8, 1, "spread"),     # top 1
+    (9, 4, 4, "spread"),      # every expert for every token
+    (40, 16, 3, "few"),       # 3 of 16 experts chosen, 40 rows each
+    (70, 8, 2, "spread"),     # more rows an expert than a token tile of 16
+])
+def test_grouped_experts_twin_over_routings(N, E, k, routing):
+    """The twin, the kernel's reference on the card, against the dense form
+    over routings the card tests send: one token, all tokens on the same
+    experts, top 1, top E, most experts idle, many rows an expert."""
+    g = torch.Generator().manual_seed(N * 100 + E * 10 + k)
+    D, F_ = 32, 16
+    x = torch.randn(N, D, generator=g).bfloat16()
+    wg, wu = (torch.randn(E, F_, D, generator=g).bfloat16() for _ in range(2))
+    wd = torch.randn(E, D, F_, generator=g).bfloat16()
+    if routing == "same":
+        ids = torch.arange(k).repeat(N, 1)
+    elif routing == "few":
+        ids = torch.stack([torch.randperm(k, generator=g) for _ in range(N)]) + E // 2
+    else:
+        ids = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(N)])
+    w = torch.rand(N, k, generator=g)
+    stats = torch.zeros(2, dtype=torch.int64)
+    got = ge.grouped_experts(x, ids, w, wg, wu, wd, stats)
+    want = _every_expert_dense(x, ids, w, wg, wu, wd)
+    torch.testing.assert_close(got.float(), want.bfloat16().float(), rtol=0, atol=0.05)
+    assert stats.tolist() == [len(set(ids.flatten().tolist())), N * k]
+
+
+@pytest.mark.parametrize("N,k,E,tile", [
+    (1, 8, 64, 16), (8, 8, 64, 16), (64, 8, 64, 16),  # small decode batches
+    (128, 8, 64, 32),                  # a 128-slot decode step of Mellum2
+    (256, 8, 64, 64),
+    (512, 8, 64, 64), (1000, 8, 64, 64), (1024, 8, 64, 64),  # prefill chunks
+    (4096, 8, 64, 64), (32, 2, 8, 16), (37, 2, 8, 32),
+])
+def test_grouped_experts_token_tile_by_shape(N, k, E, tile):
+    """The kernel's token tile from the call's shape alone: the smallest that
+    holds twice the mean assignments an expert, N k / E, at most 64."""
+    assert ge.token_tile(N, k, E) == tile
 
 
 def test_prefill_logits_match_the_reference(ref):
